@@ -1,0 +1,23 @@
+"""Nemotron-4 340B — dense GQA decoder with squared-ReLU (non-gated) MLP.
+
+[arXiv:2402.16819; unverified] 96L, d_model=18432, 96H (GQA kv=8),
+d_ff=73728, vocab=256000.
+"""
+from repro_torch.models.common import LayerSpec, ModelConfig
+
+CONFIG = ModelConfig(
+    name="nemotron-4-340b",
+    family="dense",
+    n_layers=96,
+    d_model=18432,
+    n_heads=96,
+    n_kv_heads=8,
+    head_dim=192,
+    d_ff=73728,
+    vocab_size=256000,
+    pattern=(LayerSpec("attn", "dense"),),
+    act="relu2",
+    gated_mlp=False,
+    norm="layernorm",
+    rope_theta=10_000.0,
+)

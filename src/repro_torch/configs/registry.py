@@ -1,0 +1,75 @@
+"""--arch registry: full production configs + reduced smoke variants."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+from repro_torch.models.common import ModelConfig, MoEConfig, SSMConfig
+
+from repro_torch.configs import (command_r_35b, distilbert_imdb, gemma2_27b,
+                                 grok_1_314b, jamba_1_5_large, mamba2_130m,
+                                 nemotron_4_340b, pixtral_12b, qwen2_7b,
+                                 qwen2_moe_a2_7b, whisper_base)
+
+ARCHS: Dict[str, ModelConfig] = {
+    "jamba-1.5-large-398b": jamba_1_5_large.CONFIG,
+    "command-r-35b": command_r_35b.CONFIG,
+    "nemotron-4-340b": nemotron_4_340b.CONFIG,
+    "gemma2-27b": gemma2_27b.CONFIG,
+    "qwen2-7b": qwen2_7b.CONFIG,
+    "whisper-base": whisper_base.CONFIG,
+    "mamba2-130m": mamba2_130m.CONFIG,
+    "qwen2-moe-a2.7b": qwen2_moe_a2_7b.CONFIG,
+    "grok-1-314b": grok_1_314b.CONFIG,
+    "pixtral-12b": pixtral_12b.CONFIG,
+    # the paper's own case-study model (not part of the 40 dry-run cells)
+    "distilbert-imdb": distilbert_imdb.CONFIG,
+}
+
+ASSIGNED = [k for k in ARCHS if k != "distilbert-imdb"]
+
+
+def get(name: str) -> ModelConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
+    return ARCHS[name]
+
+
+def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
+    """Same family/pattern/features, tiny dims — runs a CPU step in ms."""
+    kv = 2 if cfg.n_kv_heads < cfg.n_heads else 4
+    moe = None
+    if cfg.moe is not None:
+        mc = cfg.moe
+        moe = MoEConfig(num_experts=min(8, mc.num_experts),
+                        top_k=min(2, mc.top_k),
+                        expert_ff=64,
+                        num_shared=min(1, mc.num_shared),
+                        shared_ff=64 if mc.num_shared else 0,
+                        capacity_factor=mc.capacity_factor,
+                        router_softcap=mc.router_softcap)
+    ssm = None
+    if cfg.ssm is not None:
+        ssm = SSMConfig(d_state=16, d_conv=4, expand=2, head_dim=8,
+                        n_groups=1, chunk=8)
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-smoke",
+        n_layers=len(cfg.pattern) * 2,
+        n_enc_layers=2 if cfg.encdec else 0,
+        enc_d_model=64 if cfg.encdec else 0,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=kv,
+        head_dim=16,
+        d_ff=96 if cfg.d_ff else 0,
+        vocab_size=256,
+        max_position=4096,
+        window=8 if cfg.window else None,
+        moe=moe,
+        ssm=ssm,
+    )
+
+
+def smoke(name: str) -> ModelConfig:
+    return reduce_for_smoke(get(name))

@@ -1,0 +1,134 @@
+"""MonolithicRunner — the paper's baseline, implemented in full.
+
+One serverless function consumes all batches sequentially. Before each
+batch it checks whether enough time remains in its execution budget (the
+Lambda 15-minute limit); if not, it checkpoints its cursor to the store
+and *chains* a re-invocation, which (cold- or warm-) starts, reloads
+state, and resumes — exactly the cycle in the paper's Fig. 1 (left).
+
+Fault tolerance: a crash loses only the work since the last per-batch
+cursor checkpoint; the chain restarts from the cursor.
+
+Unlike the reference, each completed batch also commits its result to the
+store under the orchestrator's key (``job/<id>/result/<chunk>``), so the
+monolithic predictions can be merged and compared with the parallel ones.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import pickle
+from typing import Callable, List, Optional
+
+from repro_torch.core.cost_model import price_report
+from repro_torch.core.faults import NO_FAULTS, FaultInjector
+from repro_torch.core.job import (BatchJob, Chunk, InvokeOutcome,
+                                  JobReport, TaskRecord)
+from repro_torch.core.store import ArtifactStore
+from repro_torch.core.worker import ServerlessFunction
+
+
+@dataclasses.dataclass
+class MonolithicConfig:
+    function_budget_s: float = 900.0   # Lambda limit
+    safety_factor: float = 1.5         # need est×factor left to start a batch
+    max_chained: int = 10_000
+    max_restarts: int = 50
+
+
+class MonolithicRunner:
+    def __init__(self, store: ArtifactStore,
+                 cfg: MonolithicConfig = MonolithicConfig(),
+                 injector: FaultInjector = NO_FAULTS):
+        self.store = store
+        self.cfg = cfg
+        self.injector = injector
+        self.events: List[dict] = []
+
+    def run(self, job: BatchJob, chunks: List[Chunk],
+            make_worker: Callable[[int], ServerlessFunction],
+            data: Optional[dict] = None) -> JobReport:
+        cfg = self.cfg
+        cursor_key = f"job/{job.job_id}/mono_cursor"
+        cursor = 0
+        if self.store.exists(cursor_key):
+            cursor = json.loads(self.store.get(cursor_key))["cursor"]
+
+        clock = 0.0
+        tasks: List[TaskRecord] = []
+        n_crashes = 0
+        invocation = 0
+        est_batch_s: Optional[float] = None
+
+        while cursor < len(chunks) and invocation < cfg.max_chained:
+            worker = make_worker(invocation)  # new incarnation each chain
+            inv_start = clock
+            inv_compute = 0.0
+            crashed = False
+            # invocation overhead + (cold) start + model load happen once
+            # per incarnation; we account them via the first chunk's invoke
+            first = True
+            while cursor < len(chunks):
+                chunk = chunks[cursor]
+                est = est_batch_s if est_batch_s is not None else 0.0
+                used = clock - inv_start
+                if (not first and est
+                        and used + est * cfg.safety_factor
+                        > cfg.function_budget_s):
+                    self.events.append(
+                        {"t": round(clock, 3), "kind": "chain",
+                         "cursor": cursor, "invocation": invocation})
+                    break  # chain a new invocation
+                was_first = first
+                outcome = worker.invoke(job, chunk, data)
+                dur, crash = self.injector.perturb(
+                    chunk.chunk_id, invocation + 1, outcome.duration_s)
+                clock += dur
+                inv_compute += dur
+                first = False
+                if crash:
+                    crashed = True
+                    n_crashes += 1
+                    self.events.append(
+                        {"t": round(clock, 3), "kind": "crash",
+                         "cursor": cursor})
+                    break
+                # commit the batch's result first-writer-wins, as the
+                # orchestrator does, so ``decompose.merge`` reads either run
+                self.store.put(f"job/{job.job_id}/result/{chunk.chunk_id}",
+                               pickle.dumps(outcome.payload),
+                               overwrite=False)
+                cursor += 1
+                self.store.put(cursor_key,
+                               json.dumps({"cursor": cursor}).encode())
+                # recurring per-batch time excludes one-off start/load costs
+                bt = dur if not was_first else max(
+                    dur - outcome.load_s - worker.latency.cold_start_s,
+                    outcome.compute_s)
+                est_batch_s = (bt if est_batch_s is None
+                               else 0.8 * est_batch_s + 0.2 * bt)
+            rec = TaskRecord(
+                chunk=Chunk(-1 - invocation, 0, 0), attempt=invocation + 1,
+                worker_id=invocation, start_time=inv_start,
+                finish_time=clock,
+                outcome=InvokeOutcome(duration_s=clock - inv_start,
+                                      crashed=crashed,
+                                      cold_start=True,
+                                      max_ram_mb=job.ram_mb),
+                billed_s=clock - inv_start)
+            tasks.append(rec)
+            invocation += 1
+            if crashed and invocation >= cfg.max_restarts:
+                break
+
+        report = JobReport(
+            mode="monolithic", job=job, wall_time_s=clock,
+            total_billed_s=sum(t.billed_s for t in tasks),
+            n_invocations=invocation, n_requests=invocation,
+            n_transitions=0,  # no Step Functions in the monolithic flow
+            n_retries=0, n_speculative=0, n_crashes=n_crashes,
+            max_ram_mb=job.ram_mb, tasks=tasks,
+            extra={"chained_invocations": invocation,
+                   "completed_chunks": cursor},
+        )
+        return price_report(report)

@@ -1,0 +1,247 @@
+"""Orchestrator — the Step Functions analogue, with the reliability features
+a 1000-node deployment needs layered on top:
+
+  * concurrency-capped dispatch (AWS default 10; raisable, like the quota),
+  * per-chunk retry with backoff on crashes/timeouts,
+  * straggler speculation (duplicate attempts past factor × median runtime;
+    first commit wins, losers are cancelled and billed to cancellation),
+  * exactly-once result commit (idempotent first-writer-wins store puts),
+  * elastic concurrency (queue-depth-driven scale up/down),
+  * job-level checkpoint/resume (committed chunks survive orchestrator
+    restarts via the store).
+
+The engine is a deterministic discrete-event loop over a virtual clock:
+real workers *measure* compute (wall time on this host) while the schedule
+(overlap, queueing, speculation) is evaluated on the virtual clock — so a
+500-way-parallel schedule is reproduced faithfully on one CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+import heapq
+import json
+from collections import deque
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+
+from repro_torch.core.cost_model import price_report
+from repro_torch.core.faults import NO_FAULTS, FaultInjector
+from repro_torch.core.job import (BatchJob, Chunk, InvokeOutcome,
+                                  JobReport, TaskRecord)
+from repro_torch.core.store import ArtifactStore
+from repro_torch.core.worker import ServerlessFunction
+
+
+@dataclasses.dataclass
+class ElasticPolicy:
+    min_concurrency: int = 10
+    max_concurrency: int = 500
+    scale_up_queue_ratio: float = 1.5   # queue > ratio×limit -> scale up
+    scale_step: int = 25
+
+
+@dataclasses.dataclass
+class OrchestratorConfig:
+    max_concurrency: int = 10           # AWS Step Functions Map default
+    retry_max_attempts: int = 3
+    retry_backoff_s: float = 1.0
+    function_timeout_s: float = 900.0   # Lambda 15-min limit
+    speculation_factor: Optional[float] = None   # e.g. 2.5 enables
+    speculation_min_done: int = 5
+    elastic: Optional[ElasticPolicy] = None
+
+
+@dataclasses.dataclass(order=True)
+class _Event:
+    time: float
+    seq: int
+    task_idx: int = dataclasses.field(compare=False)
+
+
+class Orchestrator:
+    def __init__(self, store: ArtifactStore,
+                 cfg: OrchestratorConfig = OrchestratorConfig(),
+                 injector: FaultInjector = NO_FAULTS):
+        self.store = store
+        self.cfg = cfg
+        self.injector = injector
+        self.events: List[dict] = []  # event log (observability)
+
+    # ------------------------------------------------------------------
+    def _log(self, clock: float, kind: str, **kw):
+        self.events.append({"t": round(clock, 4), "kind": kind, **kw})
+
+    def run(self, job: BatchJob, chunks: List[Chunk],
+            make_worker: Callable[[int], ServerlessFunction],
+            data: Optional[dict] = None, *, resume: bool = False
+            ) -> JobReport:
+        cfg = self.cfg
+        progress_key = f"job/{job.job_id}/progress"
+        committed: set = set()
+        if resume and self.store.exists(progress_key):
+            committed = set(json.loads(self.store.get(progress_key)))
+            self._log(0.0, "resume", skipped=len(committed))
+
+        pending: deque = deque(
+            (c, 1, False) for c in chunks if c.chunk_id not in committed)
+        limit = cfg.max_concurrency
+        workers: Dict[int, ServerlessFunction] = {}
+        free: List[int] = []
+        tasks: List[TaskRecord] = []
+        running: Dict[int, TaskRecord] = {}   # task_idx -> record
+        chunk_running: Dict[int, List[int]] = {}  # chunk_id -> task idxs
+        heap: List[_Event] = []
+        seq = 0
+        clock = 0.0
+        done_durations: List[float] = []
+        n_retries = n_spec = n_crashes = 0
+        failed_chunks: set = set()
+
+        def start_task(chunk: Chunk, attempt: int, speculative: bool):
+            nonlocal seq
+            if free:
+                wid = free.pop()
+            else:
+                wid = len(workers)
+                workers[wid] = make_worker(wid)
+            w = workers[wid]
+            outcome = w.invoke(job, chunk, data)
+            dur, crashed = self.injector.perturb(
+                chunk.chunk_id, attempt, outcome.duration_s)
+            if dur > cfg.function_timeout_s:
+                dur, crashed = cfg.function_timeout_s, True
+            outcome.duration_s = dur
+            outcome.crashed = crashed
+            rec = TaskRecord(chunk=chunk, attempt=attempt, worker_id=wid,
+                             start_time=clock, finish_time=clock + dur,
+                             outcome=outcome, speculative=speculative)
+            tasks.append(rec)
+            idx = len(tasks) - 1
+            running[idx] = rec
+            chunk_running.setdefault(chunk.chunk_id, []).append(idx)
+            seq += 1
+            heapq.heappush(heap, _Event(rec.finish_time, seq, idx))
+            self._log(clock, "start", chunk=chunk.chunk_id, attempt=attempt,
+                      worker=wid, speculative=speculative)
+
+        def fill():
+            while pending and len(running) < limit:
+                chunk, attempt, spec = pending.popleft()
+                if chunk.chunk_id in committed:
+                    continue
+                start_task(chunk, attempt, spec)
+
+        fill()
+        while heap:
+            ev = heapq.heappop(heap)
+            rec = tasks[ev.task_idx]
+            if ev.task_idx not in running:
+                continue
+            del running[ev.task_idx]
+            clock = ev.time
+            free.append(rec.worker_id)
+            cid = rec.chunk.chunk_id
+            chunk_running[cid] = [i for i in chunk_running.get(cid, [])
+                                  if i != ev.task_idx]
+
+            if rec.cancelled:
+                pass  # billed_s was already set at cancellation time
+            elif rec.outcome.crashed:
+                n_crashes += 1
+                rec.billed_s = rec.duration_s
+                self._log(clock, "crash", chunk=cid, attempt=rec.attempt)
+                if cid not in committed:
+                    if rec.attempt < cfg.retry_max_attempts:
+                        n_retries += 1
+                        pending.append(
+                            (rec.chunk, rec.attempt + 1, rec.speculative))
+                    elif not chunk_running.get(cid):
+                        failed_chunks.add(cid)
+                        self._log(clock, "chunk_failed", chunk=cid)
+            else:
+                rec.billed_s = rec.duration_s
+                first = self.store.put(
+                    f"job/{job.job_id}/result/{cid}",
+                    _payload_bytes(rec.outcome), overwrite=False)
+                if first and cid not in committed:
+                    committed.add(cid)
+                    done_durations.append(rec.duration_s)
+                    self._log(clock, "commit", chunk=cid,
+                              attempt=rec.attempt,
+                              speculative=rec.speculative)
+                    # cancel still-running duplicates of this chunk
+                    for di in list(chunk_running.get(cid, [])):
+                        dup = tasks[di]
+                        dup.cancelled = True
+                        dup.billed_s = max(clock - dup.start_time, 0.0)
+                        dup.finish_time = clock
+                        del running[di]
+                        free.append(dup.worker_id)
+                        chunk_running[cid].remove(di)
+                        self._log(clock, "cancel_duplicate", chunk=cid)
+                else:
+                    self._log(clock, "duplicate_result", chunk=cid)
+
+            # --- straggler speculation --------------------------------
+            if (cfg.speculation_factor
+                    and len(done_durations) >= cfg.speculation_min_done):
+                med = float(np.median(done_durations))
+                for idx, r in list(running.items()):
+                    cid2 = r.chunk.chunk_id
+                    elapsed = clock - r.start_time
+                    already = sum(1 for i in chunk_running.get(cid2, []))
+                    queued = any(c.chunk_id == cid2 for c, _, _ in pending)
+                    if (elapsed > cfg.speculation_factor * med
+                            and cid2 not in committed
+                            and already < 2 and not queued):
+                        n_spec += 1
+                        # new attempt number: the duplicate re-rolls its
+                        # fault/straggler fate rather than cloning it
+                        pending.appendleft((r.chunk, r.attempt + 1, True))
+                        self._log(clock, "speculate", chunk=cid2,
+                                  elapsed=round(elapsed, 3),
+                                  median=round(med, 3))
+
+            # --- elastic concurrency ------------------------------------
+            if cfg.elastic:
+                pol = cfg.elastic
+                if len(pending) > pol.scale_up_queue_ratio * limit:
+                    new = min(limit + pol.scale_step, pol.max_concurrency)
+                    if new != limit:
+                        limit = new
+                        self._log(clock, "scale_up", limit=limit)
+                elif (len(pending) == 0
+                      and limit > pol.min_concurrency):
+                    limit = max(pol.min_concurrency,
+                                limit - pol.scale_step)
+                    self._log(clock, "scale_down", limit=limit)
+
+            fill()
+            # persist job progress for orchestrator-level restart
+            self.store.put(progress_key,
+                           json.dumps(sorted(committed)).encode())
+
+        if failed_chunks:
+            self._log(clock, "job_failed", chunks=sorted(failed_chunks))
+
+        report = JobReport(
+            mode="parallel", job=job, wall_time_s=clock,
+            total_billed_s=sum(t.billed_s for t in tasks),
+            n_invocations=len(tasks), n_requests=len(tasks),
+            n_transitions=2 * len(tasks) + 5,
+            n_retries=n_retries, n_speculative=n_spec, n_crashes=n_crashes,
+            max_ram_mb=max((t.outcome.max_ram_mb for t in tasks),
+                           default=job.ram_mb),
+            tasks=tasks,
+            extra={"failed_chunks": sorted(failed_chunks),
+                   "committed": len(committed),
+                   "n_workers": len(workers),
+                   "final_concurrency": limit},
+        )
+        return price_report(report)
+
+
+def _payload_bytes(outcome: InvokeOutcome) -> bytes:
+    import pickle
+    return pickle.dumps(outcome.payload)
