@@ -1,17 +1,26 @@
-"""GQA attention, full-sequence path (train / prefill / classification).
+"""GQA attention: full-sequence (train / prefill / classification) and
+single-token decode paths.
 
-Counterpart of the full-sequence half of ``repro.models.attention``:
-grouped-query attention, causal / bidirectional / sliding-window masks,
-logit softcapping, QKV / output biases, RoPE or external positions.
+Counterpart of ``repro.models.attention`` for dense caches: grouped-query
+attention, causal / bidirectional / sliding-window masks, logit
+softcapping, QKV / output biases, RoPE or external positions, and ragged
+batched decode over a shared cache.
 
 ``impl`` dispatch:
   * "xla"    — plain torch path (``_attend_dense``, the reference's
-               einsum path, query-chunked past 2 * Q_CHUNK)
-  * "pallas" — the hand-written CUDA kernel (``kernels/flash_attention``),
-               which takes the role of the reference's Pallas kernel
+               einsum path, query-chunked past 2 * Q_CHUNK; for decode
+               the decode kernel's plain version, ``decode_attention_ref``)
+  * "pallas" — the hand-written CUDA kernels (``kernels/flash_attention``
+               for full sequences, ``kernels/decode_attention`` for
+               decode), which take the role of the reference's Pallas
+               kernels
+  * "seq_shard" and int8 KV caches are not ported yet: they raise
+    ``NotImplementedError`` (ROADMAP Queue 1 #8 and #5).
 
 The projections are single matmuls over the flattened head dims, so q, k
-and v come out contiguous, as the kernel wants them.
+and v come out contiguous, as the kernels want them. Decode writes the
+new token's k/v into the caller's cache IN PLACE (the reference donates
+the cache buffer to the same effect).
 """
 from __future__ import annotations
 
@@ -19,6 +28,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
+                                                      row_lengths)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.common import AxSpec, ModelConfig, apply_rope, softcap
 
@@ -144,8 +156,38 @@ def attend_full(q, k, v, *, mask_kind: str = "causal",
         for off in range(0, s, Q_CHUNK)], dim=1)
 
 
+def _not_ported(impl: str, quant: bool):
+    if impl == "seq_shard":
+        raise NotImplementedError(
+            "attn_impl='seq_shard' (sequence-sharded decode) is not ported "
+            "yet (ROADMAP.md Queue 1 #8)")
+    if quant:
+        raise NotImplementedError(
+            "int8 KV caches are not ported yet (ROADMAP.md Queue 1 #5)")
+
+
+def attend_decode(q, k_cache, v_cache, lengths, *, k_scale=None,
+                  v_scale=None, window: Optional[int] = None,
+                  cap: Optional[float] = None, impl: str = "xla"):
+    """Single-token decode. q: (B,1,H,hd); caches: (B,Smax,KV,hd).
+
+    ``lengths`` (int32, scalar or (B,)) = per-row index of the current
+    token; row b attends kv positions j <= lengths[b] (the new token's
+    k/v must already be written). A (B,) vector makes the batch RAGGED:
+    one call serves every continuous-batching slot at its own position.
+    """
+    _not_ported(impl, k_scale is not None or v_scale is not None)
+    lengths = row_lengths(lengths, q.shape[0], q.device)
+    if impl == "pallas":
+        return da_ops.decode_attention(
+            q[:, 0], k_cache, v_cache, lengths, window=window,
+            softcap=cap)[:, None]
+    return decode_attention_ref(q[:, 0], k_cache, v_cache, lengths,
+                                window=window, softcap=cap)[:, None]
+
+
 # ---------------------------------------------------------------------------
-# Layer-level wrapper used by the transformer block
+# Layer-level wrappers used by the transformer block
 # ---------------------------------------------------------------------------
 
 
@@ -163,3 +205,46 @@ def attn_forward(cfg: ModelConfig, p, x, *, mixer: str, positions,
                     cap=cfg.attn_softcap, impl=impl)
     y = out_proj(p, o)
     return (y, (k, v)) if return_kv else y
+
+
+def write_kv_rows(cache, new, lengths):
+    """Write ``new`` (B,1,KV,hd) into ``cache`` (B,Smax,KV,hd) IN PLACE at
+    each row's own position ``lengths[b]``; returns ``cache``.
+
+    The position is clamped to [0, Smax - 1], as the reference's
+    ``dynamic_update_slice`` clamps its start index: a free row whose
+    length has run past the cache's end overwrites its last position
+    instead of raising (on CUDA an index past the end would be a
+    device-side assert).
+    """
+    b, smax = cache.shape[0], cache.shape[1]
+    pos = row_lengths(lengths, b, cache.device).clamp(0, smax - 1).long()
+    cache[torch.arange(b, device=cache.device), pos] = new[:, 0].to(
+        cache.dtype)
+    return cache
+
+
+def attn_decode_layer(cfg: ModelConfig, p, x, k_cache, v_cache, lengths, *,
+                      mixer: str, impl: str = "xla", k_scale=None,
+                      v_scale=None):
+    """Decode sublayer: project, write the new k/v at each row's
+    ``lengths[b]`` (in place), attend.
+
+    Returns (y, k_cache, v_cache), the caches being the ones passed in.
+    ``lengths`` is scalar or (B,): per-row positions let one shared
+    batched cache serve rows at different decode depths. RoPE rotates
+    each row at its own (unclamped) index.
+    """
+    _not_ported(impl, k_scale is not None or v_scale is not None)
+    lengths = row_lengths(lengths, x.shape[0], x.device)
+    q, k, v = project_qkv(cfg, p, x)  # q, k, v: (B,1,.,hd)
+    if cfg.pos == "rope":
+        pos = lengths[:, None]  # (B,1): each row rotates at its own index
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    window = cfg.window if mixer == "attn_local" else None
+    write_kv_rows(k_cache, k, lengths)
+    write_kv_rows(v_cache, v, lengths)
+    o = attend_decode(q, k_cache, v_cache, lengths, window=window,
+                      cap=cfg.attn_softcap, impl=impl)
+    return out_proj(p, o), k_cache, v_cache

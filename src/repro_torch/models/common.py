@@ -64,9 +64,12 @@ def param_bytes(spec_tree) -> int:
 def init_params(spec_tree, generator: torch.Generator, device="cuda"):
     """Materialize a descriptor tree into tensors on ``device``.
 
-    Draws come from ``generator`` on the CPU, in tree order, and are then
-    moved, so one seed gives the same weights on every device. On the
-    ``meta`` device nothing is drawn or allocated.
+    Draws come from ``generator`` on the generator's own device, in tree
+    order, and are then moved: one seed and one generator device give the
+    same weights wherever they land. A CUDA generator draws on the card,
+    which a full-width model needs (billions of values); a CPU generator
+    gives the same weights on every device. On the ``meta`` device
+    nothing is drawn or allocated.
     """
     device = torch.device(device)
 
@@ -85,7 +88,7 @@ def init_params(spec_tree, generator: torch.Generator, device="cuda"):
         if s.init == "small":
             std = 0.006
         x = torch.randn(s.shape, generator=generator,
-                        dtype=torch.float32) * std
+                        dtype=torch.float32, device=generator.device) * std
         return x.to(device=device, dtype=s.dtype)
 
     return tree_map_spec(one, spec_tree)

@@ -7,7 +7,7 @@ for the rest).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -37,6 +37,32 @@ class Model:
         return transformer.forward(self.cfg, run, params,
                                    tokens=batch.get("tokens"),
                                    embeddings=batch.get("embeddings"))
+
+    def prefill(self, run: RunConfig, params, batch,
+                max_len: Optional[int] = None):
+        """batch dict -> (last-token logits (B,V), populated Cache)."""
+        return transformer.prefill(self.cfg, run, params,
+                                   tokens=batch.get("tokens"),
+                                   embeddings=batch.get("embeddings"),
+                                   max_len=max_len)
+
+    def decode_step(self, run: RunConfig, params, cache, batch):
+        """One RAGGED decode step: row b embeds/writes/attends at its own
+        ``cache.lengths[b]`` and every row's length advances by 1; the
+        cache is updated in place and returned."""
+        return transformer.decode_step(self.cfg, run, params, cache,
+                                       token=batch.get("token"),
+                                       embedding=batch.get("embedding"))
+
+    # -- cache ----------------------------------------------------------
+    def cache_specs(self, batch: int, max_len: int, kv_dtype: str = "bf16"):
+        """The cache on the meta device (shapes and dtypes only)."""
+        return transformer.cache_specs(self.cfg, batch, max_len, kv_dtype)
+
+    def init_cache(self, batch: int, max_len: int, kv_dtype: str = "bf16",
+                   device="cuda"):
+        return transformer.init_cache(self.cfg, batch, max_len, kv_dtype,
+                                      device=device)
 
 
 def _active_params(cfg: ModelConfig, specs) -> int:
