@@ -10,6 +10,9 @@ points and checks what comes out:
        prefill shape), timed;
   (a2) decode attention and the fused sampling epilogue vs their plain
        versions at qwen2-7b's decode shapes, timed;
+  (a3) the int8, paged and paged-int8 decode-attention kernels vs their
+       plain versions at qwen2-7b's decode shape (timed, beside the dense
+       kernel at the same logical shape) and on edge cases;
   (b)  the paper's offline batch job on the full-width ``distilbert-imdb``
        encoder, monolithic and then parallel;
   (c)  generative serving on the full-width ``qwen2-7b`` (random weights):
@@ -20,7 +23,12 @@ points and checks what comes out:
   (e)  the example's entry point as a user runs it on the card
        (``python -m repro_torch.examples.serve_cluster``), whose sizes
        phases (c) and (d) share: its greedy streams and its job's tokens
-       equal theirs.
+       equal theirs;
+  (f)  paged and int8 serving on the full-width ``qwen2-7b``: 24 requests
+       in three groups sharing a 448-token prefix, dense int8, paged bf16,
+       paged int8 and paged int8 with fused sampling, against a dense
+       bf16 run; prefix sharing, copy-on-write after a fork, int8 vs bf16
+       teacher-forced, decode round times.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Any failed phase raises, so the script exits non-zero and
@@ -58,8 +66,11 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import \
     fused_sampling as fs  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
-from repro_torch.kernels.decode_attention.ref import \
-    decode_attention_ref  # noqa: E402
+from repro_torch.kernels.decode_attention.quant import \
+    quantize_kv  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_quant_ref, decode_attention_ref,
+    paged_decode_attention_quant_ref, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
     flash_attention_ref  # noqa: E402
@@ -67,8 +78,8 @@ from repro_torch.launch.serve import run_offline  # noqa: E402
 from repro_torch.models import RunConfig, build as build_model  # noqa: E402
 from repro_torch.models import attention, transformer  # noqa: E402
 from repro_torch.models.common import apply_norm  # noqa: E402
-from repro_torch.models.transformer import Cache  # noqa: E402
-from repro_torch.serving import Engine  # noqa: E402
+from repro_torch.models.transformer import Cache, PagedCache  # noqa: E402
+from repro_torch.serving import Engine, PageAllocator, Request  # noqa: E402
 from repro_torch.tree import tree_leaves_with_path  # noqa: E402
 
 # Published peaks of one H100 SXM at its full 700 W limit (NVIDIA data
@@ -95,6 +106,12 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 LAYER_RTOL = 1e-2
 NOISE_FACTOR = 2.0
 LOGIT_FLOOR = 0.05
+# Phase (f): two serving paths on the same rows, teacher-forced (dense vs
+# paged, bf16 vs int8), differ by where and how the prompt's K/V were
+# computed and stored; their logits must agree to this relative RMS (a
+# wrong page or scale gives about 1). Measured on an H100: 0.007 for the
+# dense kernel vs plain paths, 0.012 at most between the serving paths.
+PATH_RTOL = 0.05
 
 # main path: distilbert-imdb at full width, seq 512, batches of 32
 MAIN = dict(n_items=512, seq_len=512, batch_size=32, concurrency=8, seed=0)
@@ -414,24 +431,57 @@ def run_main_path(dev) -> int:
 # ---------------------------------------------------------------------------
 
 
-def decode_bound_ms(q, k, lengths, window) -> tuple:
+def decode_bound_ms(q, k, lengths, n_pos, window=None, page_size=None,
+                    scaled=False) -> tuple:
     """(least ms, "bytes" or "operations") of one decode-attention call on
-    these inputs: q, lengths and o once, and the k and v rows each row can
-    see; two products over the visible positions."""
+    these inputs: q, lengths and o once; per visible position its K and V
+    rows (``scaled``: and their two fp32 scales); paged (``page_size``):
+    the table entries of the pages it touches. ``n_pos`` is a row's
+    capacity (T, or Pmax * page_size). Two products over the visible
+    positions."""
     b, h, d = q.shape
-    t, kv = k.shape[1], k.shape[2]
+    kv = k.shape[2]
     lens = lengths.long().cpu()
-    hi = torch.clamp(lens, max=t - 1)
+    hi = torch.clamp(lens, max=n_pos - 1)
     lo = torch.zeros_like(lens) if window is None else torch.clamp(
         lens - window + 1, min=0)
     visible = int(torch.clamp(hi - lo + 1, min=0).sum())
-    nbytes = (2 * q.numel() * q.element_size() + 4 * b
-              + 2 * visible * kv * d * k.element_size())
+    per_pos = 2 * kv * d * k.element_size() + (2 * kv * 4 if scaled else 0)
+    nbytes = 2 * q.numel() * q.element_size() + 4 * b + visible * per_pos
+    if page_size is not None:
+        nbytes += 4 * sum(hi_ // page_size - lo_ // page_size + 1
+                          for hi_, lo_ in zip(hi.tolist(), lo.tolist())
+                          if hi_ >= lo_)
     flops = 4.0 * visible * h * d
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[q.dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def profile_round(fn, n_prof: int = 3) -> dict:
+    """Where one call of ``fn`` (a decode round) spends device time:
+    kernel events only (an op's own device time repeats its kernels'),
+    averaged over ``n_prof`` calls under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            fn()
+        torch.cuda.synchronize()
+        window_us = 1e6 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"busy_ms": device_us / n_prof / 1e3,
+            "launches": sum(e.count for e in kernels) / n_prof,
+            "window_ms": window_us / n_prof / 1e3,
+            "breakdown": {e.key[:60]: round(e.self_device_time_total
+                                            / n_prof, 1) for e in top}}
 
 
 def check_decode_kernel(dev) -> dict:
@@ -469,7 +519,7 @@ def check_decode_kernel(dev) -> dict:
     qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=50)
-    bound_ms, bound_by = decode_bound_ms(q, k, lens, window)
+    bound_ms, bound_by = decode_bound_ms(q, k, lens, k.shape[1], window)
     print(f"kernel decode_attention at the serving path's shape "
           f"q{tuple(q.shape)} k{tuple(k.shape)}: {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
@@ -585,6 +635,186 @@ def check_sampling_kernel(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase (a3): the int8, paged and paged-int8 decode-attention kernels
+# ---------------------------------------------------------------------------
+
+# (name, variant, b, h, kv, d, logical positions, page size, lengths,
+#  window, cap, q dtype, options). Variants: "quant" (dense int8), "paged"
+# (bf16/fp32 pools), "paged_quant" (int8 pools). The first case of each
+# variant is the serving path's shape and is timed. Pools are permuted;
+# options: "share" (rows 0 and 1 share their first pages), "free" (the last
+# row is free: an all-zero table, length past its prompt), "zero" (every
+# third token all zeros: scale eps), "spread" (random int8 values, scales
+# 1e-3 .. 10).
+A3_CASES = [
+    ("quant_main_path", "quant", 8, 28, 4, 128, 1024, None, _PATH_LENGTHS,
+     None, None, torch.bfloat16, ()),
+    ("paged_main_path", "paged", 8, 28, 4, 128, 1024, 16, _PATH_LENGTHS,
+     None, None, torch.bfloat16, ()),
+    ("paged_quant_main_path", "paged_quant", 8, 28, 4, 128, 1024, 16,
+     _PATH_LENGTHS, None, None, torch.bfloat16, ()),
+]
+for _v in ("quant", "paged", "paged_quant"):
+    _ps = None if _v == "quant" else 16
+    _pq = () if _v == "quant" else ("share", "free")
+    A3_CASES += [
+        (f"{_v}_edges", _v, 6, 28, 4, 128, 1024, _ps,
+         (0, 1023, 1024, 5000, 1, 64), None, None, torch.bfloat16, _pq),
+        (f"{_v}_window_softcap", _v, 4, 28, 4, 128, 1024, _ps,
+         (100, 500, 1023, 900), 128, 30.0, torch.bfloat16, ()),
+        (f"{_v}_mha_d64_fp32_b1", _v, 1, 12, 12, 64, 512, _ps, (300,),
+         None, None, torch.float32, ()),
+    ]
+A3_CASES += [
+    (f"paged_ps{ps}", "paged", 4, 28, 4, 128, 960, ps, (0, 959, 500, 77),
+     None, None, torch.bfloat16, ("share", "free"))
+    for ps in (8, 64, 24)      # 24 does not divide the 64-position tile
+] + [
+    (f"paged_quant_ps{ps}", "paged_quant", 4, 28, 4, 128, 960, ps,
+     (0, 959, 500, 77), None, None, torch.bfloat16, ("share", "free"))
+    for ps in (8, 64, 24)
+] + [
+    ("quant_zero_tokens", "quant", 3, 28, 4, 128, 256, None, (255, 100, 9),
+     None, None, torch.bfloat16, ("zero",)),
+    ("quant_scale_spread", "quant", 3, 28, 4, 128, 256, None,
+     (255, 100, 9), None, None, torch.float32, ("spread",)),
+    ("paged_quant_zero_tokens", "paged_quant", 3, 28, 4, 128, 256, 16,
+     (255, 100, 9), None, None, torch.bfloat16, ("zero",)),
+    ("paged_quant_scale_spread", "paged_quant", 3, 28, 4, 128, 256, 16,
+     (255, 100, 9), None, None, torch.float32, ("spread",)),
+]
+A3_KERNELS = {
+    "quant": ("decode_attention_quant", "decode_attention.py:257"),
+    "paged": ("paged_decode_attention", "decode_attention.py:388"),
+    "paged_quant": ("paged_decode_attention_quant", "decode_attention.py:457"),
+}
+
+
+def _int8_kv(shape, g, dev, options):
+    """int8 values and fp32 (..., 1) scales: quantized normal data (every
+    third token zeroed under "zero"), or random values with scales spread
+    over 1e-3 .. 10 under "spread"."""
+    if "spread" in options:
+        vals = torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+        expo = torch.rand(shape[:-1] + (1,), generator=g, device=dev)
+        return vals, 10.0 ** (4.0 * expo - 3.0)
+    x = torch.randn(shape, generator=g, device=dev)
+    if "zero" in options:
+        x.view(-1, *shape[-2:])[::3] = 0.0
+    return quantize_kv(x)
+
+
+def a3_inputs(case, dev) -> dict:
+    """The kernel's inputs for one case, from a generator seeded by name."""
+    name, variant, b, h, kv, d, n_pos, ps, lengths, _, _, dtype, opts = case
+    g = torch.Generator(device=dev).manual_seed(len(name) + 7)
+    out = {"q": torch.randn(b, h, d, generator=g, device=dev, dtype=dtype),
+           "lengths": torch.tensor(lengths, dtype=torch.int32, device=dev)}
+    if variant == "quant":
+        shape = (b, n_pos, kv, d)
+    else:
+        pmax = n_pos // ps
+        n_pages = 1 + b * pmax
+        shape = (n_pages, ps, kv, d)
+        perm = torch.randperm(n_pages - 1, generator=g, device=dev) + 1
+        table = perm[:b * pmax].reshape(b, pmax).to(torch.int32)
+        if "share" in opts:  # rows 0 and 1 read the same first pages
+            table[1, :pmax // 2] = table[0, :pmax // 2]
+        if "free" in opts:   # a freed row: all-null table
+            table[-1] = 0
+        out["page_table"] = table.contiguous()
+    if variant == "paged":
+        out["k"], out["v"] = (torch.randn(shape, generator=g, device=dev,
+                                          dtype=dtype) for _ in range(2))
+    else:
+        out["k"], out["k_scale"] = _int8_kv(shape, g, dev, opts)
+        out["v"], out["v_scale"] = _int8_kv(shape, g, dev, opts)
+    return out
+
+
+def a3_call(variant, x, window=None, cap=None, plain=False):
+    """The kernel (or, ``plain``, its plain version) of ``variant`` on the
+    inputs ``x``."""
+    kw = dict(window=window, softcap=cap)
+    scales = (x["k_scale"], x["v_scale"]) if "k_scale" in x else ()
+    if plain:
+        fn = {"quant": decode_attention_quant_ref,
+              "paged": paged_decode_attention_ref,
+              "paged_quant": paged_decode_attention_quant_ref}[variant]
+        table = () if variant == "quant" else (x["page_table"],)
+        return fn(x["q"], x["k"], x["v"], *scales, x["lengths"], *table,
+                  **kw)
+    if scales:
+        kw.update(k_scale=scales[0], v_scale=scales[1])
+    if variant == "quant":
+        return da_ops.decode_attention(x["q"], x["k"], x["v"], x["lengths"],
+                                       **kw)
+    return da_ops.paged_decode_attention(x["q"], x["k"], x["v"],
+                                         x["lengths"], x["page_table"], **kw)
+
+
+def check_variant_kernels(dev) -> list:
+    """Phase (a3): each new kernel against its plain version case by case
+    (max |error| within the tolerance of q's dtype times
+    max(1, max |plain|), as the spread scales reach values near 1000),
+    timed at the serving path's shape beside its bound, its plain version
+    and the dense bf16 kernel at the same logical shape."""
+    timed = {}
+    for case in A3_CASES:
+        name, variant, b, h, kv, d, n_pos, ps, lengths, window, cap, \
+            dtype, opts = case
+        x = a3_inputs(case, dev)
+        out = a3_call(variant, x, window, cap)
+        torch.cuda.synchronize()
+        ref = a3_call(variant, x, window, cap, plain=True)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = TOL[dtype] * max(1.0, ref.float().abs().max().item())
+        ok = (out.shape == x["q"].shape and out.dtype == dtype
+              and math.isfinite(err) and err <= tol)
+        print(f"kernel {A3_KERNELS[variant][0]} {name}: q{tuple(x['q'].shape)}"
+              f" kv{tuple(x['k'].shape)} ps {ps} lengths {list(lengths)} "
+              f"window {window} cap {cap} {list(opts)} "
+              f"{str(dtype).removeprefix('torch.')} max_abs_err={err:.3g} "
+              f"tol={tol:.3g} {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"{A3_KERNELS[variant][0]} kernel disagrees "
+                                 f"with its plain version on {name}: {err}")
+        if variant not in timed:
+            timed[variant] = (case, x, err)
+
+    results = []
+    for variant, (case, x, err) in timed.items():
+        name, _, b, h, kv, d, n_pos, ps = case[:8]
+        ms = cuda_ms(lambda: a3_call(variant, x), iters=50)
+        plain_ms = cuda_ms(lambda: a3_call(variant, x, plain=True),
+                           iters=20)
+        g = torch.Generator(device=dev).manual_seed(1)
+        kd, vd = (torch.randn(b, n_pos, kv, d, generator=g, device=dev,
+                              dtype=x["q"].dtype) for _ in range(2))
+        dense_ms = cuda_ms(lambda: da_ops.decode_attention(
+            x["q"], kd, vd, x["lengths"]), iters=50)
+        bound_ms, bound_by = decode_bound_ms(
+            x["q"], x["k"], x["lengths"], n_pos, page_size=ps,
+            scaled="k_scale" in x)
+        kname, line = A3_KERNELS[variant]
+        print(f"kernel {kname} at the serving path's shape "
+              f"q{tuple(x['q'].shape)} kv{tuple(x['k'].shape)}: {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, dense bf16 kernel at the same "
+              f"logical shape {dense_ms:.4f} ms, no single library call, "
+              f"bound {bound_ms:.5f} ms ({bound_by})")
+        results.append({
+            "name": kname, "route": "cuda",
+            "source": "src/repro_torch/kernels/decode_attention/"
+                      "decode_attention.cu",
+            "replaces": f"src/repro/kernels/decode_attention/{line}",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "dense_kernel_ms": dense_ms})
+    return results
+
+
+# ---------------------------------------------------------------------------
 # Phase (c): generative serving at full width
 # ---------------------------------------------------------------------------
 
@@ -595,12 +825,20 @@ SEED = serve_cluster.SEED
 
 def reset_counts():
     fa_ops.launches = da_ops.launches = fs.launches = 0
+    da_ops.quant_launches = da_ops.paged_launches = 0
+    da_ops.paged_quant_launches = 0
 
 
 def read_counts() -> dict:
     return {"flash_attention": fa_ops.launches,
             "decode_attention": da_ops.launches,
+            "decode_attention_quant": da_ops.quant_launches,
+            "paged_decode_attention": da_ops.paged_launches,
+            "paged_decode_attention_quant": da_ops.paged_quant_launches,
             "fused_sample": fs.launches}
+
+
+NO_LAUNCHES = dict.fromkeys(read_counts(), 0)
 
 
 def clone_cache(cache: Cache) -> Cache:
@@ -698,10 +936,11 @@ def serve_phase(engine, params, cfg, on_round=None, **kw) -> dict:
     if rejected or len(res["completed"]) != len(reqs):
         raise AssertionError(f"{len(rejected)} rejected, "
                              f"{len(res['completed'])} completed")
-    want = {"flash_attention": cfg.n_layers * admissions,
-            "decode_attention": cfg.n_layers * b.decode_dispatches,
-            "fused_sample": (admissions + b.decode_dispatches
-                             if b.fused_sampling else 0)}
+    want = dict(NO_LAUNCHES,
+                flash_attention=cfg.n_layers * admissions,
+                decode_attention=cfg.n_layers * b.decode_dispatches,
+                fused_sample=(admissions + b.decode_dispatches
+                              if b.fused_sampling else 0))
     if res["counts"] != want:
         raise AssertionError(f"launches {res['counts']}, want {want}")
     if b.decode_dispatches != b.rounds:
@@ -845,32 +1084,15 @@ def run_generation(dev) -> tuple:
     prefill_ms = cuda_ms(lambda: engine.prefill_into(
         params, check, 0, longest[None]), iters=3, warmup=1)
     # where a decode round's time goes: device time by kernel, idle share
-    # (kernel events only: an op's own device time repeats its kernels')
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    n_prof = 3
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            engine.decode(params, check, tok)
-        torch.cuda.synchronize()
-        window_us = 1e6 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in kernels)
-    launches_per_round = sum(e.count for e in kernels) / n_prof
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    breakdown = {e.key[:60]: round(e.self_device_time_total / n_prof, 1)
-                 for e in top}
-    busy_ms = device_us / n_prof / 1e3
-    idle = 1 - busy_ms / decode_ms if device_us else None
+    prof = profile_round(lambda: engine.decode(params, check, tok))
+    busy_ms, launches_per_round = prof["busy_ms"], prof["launches"]
+    breakdown = prof["breakdown"]
+    idle = 1 - busy_ms / decode_ms if busy_ms else None
     print(f"decode round (8 slots, CUDA events): kernel path {decode_ms:.3f}"
           f" ms, plain attention {decode_plain_ms:.3f} ms; prefill of "
           f"{len(longest)} tokens {prefill_ms:.3f} ms; profiled: device busy "
           f"{busy_ms:.3f} ms a round in {launches_per_round:.0f} kernel "
-          f"launches ({window_us / n_prof / 1e3:.3f} ms a round under the "
+          f"launches ({prof['window_ms']:.3f} ms a round under the "
           f"profiler), idle share of the unprofiled round "
           f"{'not measured' if idle is None else f'{idle:.3f}'}; top "
           f"kernels (us/round) {breakdown}")
@@ -901,7 +1123,7 @@ def run_generation(dev) -> tuple:
         "decode_round_plain_attention_ms": decode_plain_ms,
         "prefill_ms_longest": prefill_ms, "round_device_busy_ms": busy_ms,
         "round_kernel_launches": launches_per_round,
-        "profiled_round_wall_ms": window_us / n_prof / 1e3,
+        "profiled_round_wall_ms": prof["window_ms"],
         "idle_share": idle, "round_breakdown_us": breakdown})
     print("generate " + json.dumps(out))
     counts = {k: greedy["counts"][k] + fused["counts"][k]
@@ -933,9 +1155,8 @@ def run_generation_job(dev) -> tuple:
     counts = read_counts()
     report = job["report"]
     n_inv = report.n_invocations
-    want = {"flash_attention": cfg.n_layers * n_inv,
-            "decode_attention": cfg.n_layers * n_inv * (new_tokens - 1),
-            "fused_sample": 0}
+    want = dict(NO_LAUNCHES, flash_attention=cfg.n_layers * n_inv,
+                decode_attention=cfg.n_layers * n_inv * (new_tokens - 1))
     if counts != want:
         raise AssertionError(f"launches {counts}, want {want}")
     if report.extra["committed"] != len(job["chunks"]) or \
@@ -1022,6 +1243,525 @@ def run_entry_point(dev, greedy_streams, job_tokens) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase (f): paged and int8 serving at full width
+# ---------------------------------------------------------------------------
+
+PAGED = serve_cluster.PAGED_CARD_SIZES
+TEACHER_ROUNDS = 32
+FORK_STEPS = 16
+
+
+class _PlanSpy:
+    """Keeps every ``PageAllocator.admit`` plan of a run."""
+
+    def __init__(self):
+        self.plans = []
+        self.admit = PageAllocator.admit
+
+    def __enter__(self):
+        spy = self
+
+        def admit(alloc, *args, **kw):
+            plan = spy.admit(alloc, *args, **kw)
+            spy.plans.append(plan)
+            return plan
+
+        PageAllocator.admit = admit
+        return self
+
+    def __exit__(self, *exc):
+        PageAllocator.admit = self.admit
+
+
+def rel_rms(a, b) -> float:
+    """||a - b|| / ||b|| over every element, in float64."""
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def admit_rows(engine, params, reqs, paged: bool):
+    """A fresh cache (8 slots, PAGED sizes) with ``reqs`` admitted into rows
+    0.. as the batcher admits them: ``prefill_into`` dense; allocator plan,
+    ``assign_row_pages`` and ``extend_row`` paged. Returns (cache, the
+    admissions' logits (n, V))."""
+    max_pages = PAGED.max_len // PAGED.page_size
+    if paged:
+        alloc = PageAllocator(1 + PAGED.n_slots * max_pages,
+                              PAGED.page_size, max_pages)
+        cache = engine.new_paged_cache(PAGED.n_slots, alloc.n_pages,
+                                       PAGED.page_size, max_pages)
+    else:
+        cache = engine.new_cache(PAGED.n_slots, PAGED.max_len)
+    logits = []
+    for row, req in enumerate(reqs):
+        if paged:
+            plan = alloc.admit(row, req.prompt, req.max_new_tokens)
+            cache = engine.assign_row_pages(cache, row, plan.pages,
+                                            plan.start_len)
+            lg, cache = engine.extend_row(params, cache, row,
+                                          plan.suffix[None])
+        else:
+            lg, cache = engine.prefill_into(params, cache, row,
+                                            req.prompt[None])
+        logits.append(lg)
+    return cache, torch.cat(logits)
+
+
+def teacher_forced(engines, params, reqs, rounds,
+                   near_ties_only: bool = True) -> dict:
+    """The same rows through two engine paths, decoded ``rounds`` rounds on
+    the FIRST path's greedy tokens (teacher forcing). With
+    ``near_ties_only`` each argmax flip must be a near-tie: the first
+    path's top-2 gap at most twice that round's max |logit difference|
+    (``tests/test_kv_int8.py``'s rule). Returns the flips, the max
+    difference and the logits' relative RMS."""
+    (a_eng, a_paged), (b_eng, b_paged) = engines
+    ca, la = admit_rows(a_eng, params, reqs, a_paged)
+    cb, lb = admit_rows(b_eng, params, reqs, b_paged)
+    pairs, flips, hard = [(la, lb)], 0, []
+    tok = la.argmax(-1).to(torch.int32)[:, None]
+    for step in range(rounds):
+        la, ca = a_eng.decode(params, ca, tok)
+        lb, cb = b_eng.decode(params, cb, tok)
+        pairs.append((la, lb))
+        delta = float((la - lb).abs().max())
+        for row in range(la.shape[0]):
+            if int(la[row].argmax()) != int(lb[row].argmax()):
+                flips += 1
+                top2 = torch.topk(la[row], 2).values
+                gap = float(top2[0] - top2[1])
+                if gap > 2 * delta:
+                    hard.append((step, row, gap, delta))
+        tok = la.argmax(-1).to(torch.int32)[:, None]
+    a = torch.stack([p[0] for p in pairs])
+    b = torch.stack([p[1] for p in pairs])
+    if hard and near_ties_only:
+        raise AssertionError(f"argmax flips past near-ties: {hard}")
+    return {"flips": flips, "rows": int(a.shape[0] * a.shape[1]),
+            "max_abs_diff": float((a - b).abs().max()),
+            "rel_rms": rel_rms(b, a)}
+
+
+def parted_at_near_ties(engine, params, prompts, want, got, tie) -> int:
+    """Streams equal token for token, or parted where both tokens lie
+    within ``tie`` of the best logit of ``engine`` (a fresh prefill of the
+    prompt and the common tokens) at the first difference. Returns how many
+    parted; raises at a parting that is not a near-tie."""
+    parted = 0
+    for prompt, a, b in zip(prompts, want, got):
+        if len(a) != len(b):
+            raise AssertionError(f"stream lengths {len(a)} vs {len(b)}")
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            continue
+        seq = np.concatenate([np.asarray(prompt), a[:i]]).astype(np.int32)
+        logits, _ = engine.prefill(params, seq[None])
+        best = float(logits[0].max())
+        gaps = (best - float(logits[0, a[i]]), best - float(logits[0, b[i]]))
+        if max(gaps) > tie:
+            raise AssertionError(f"stream parts at token {i} ({a[i]} vs "
+                                 f"{b[i]}) with logit gaps {gaps} > {tie}")
+        parted += 1
+    return parted
+
+
+def fork_divergence(engine, params, req) -> dict:
+    """Best-of-2 on the paged cache: admit ``req`` into row 0, fork it into
+    row 1 (``fork_row``: no KV copied), force a different first token
+    there, and decode both rows in the same calls for FORK_STEPS rounds,
+    running the copy-on-write barrier before each. Returns both branches'
+    tokens, the barrier's copies and the two rows' pages."""
+    max_pages = PAGED.max_len // PAGED.page_size
+    alloc = PageAllocator(1 + PAGED.n_slots * max_pages, PAGED.page_size,
+                          max_pages)
+    cache = engine.new_paged_cache(PAGED.n_slots, alloc.n_pages,
+                                   PAGED.page_size, max_pages)
+    plan = alloc.admit(0, req.prompt, FORK_STEPS + 1)
+    cache = engine.assign_row_pages(cache, 0, plan.pages, plan.start_len)
+    logits, cache = engine.extend_row(params, cache, 0, plan.suffix[None])
+    t0 = int(logits[0].argmax())
+    t1 = next(t for t in torch.topk(logits[0], 2).indices.tolist()
+              if t != t0)  # the runner-up
+    alloc.fork(0, 1)
+    cache = engine.fork_row(cache, 0, 1)
+    n = len(req.prompt)
+    host_len = {0: n, 1: n}
+    toks = np.zeros((PAGED.n_slots, 1), np.int32)
+    toks[:2, 0] = (t0, t1)
+    out, cows = {0: [t0], 1: [t1]}, []
+    for _ in range(FORK_STEPS):
+        for row in (0, 1):
+            cow = alloc.writable_page(row, host_len[row])
+            if cow is not None:
+                cows.append(cow)
+                cache = engine.cow_copy_page(cache, *cow)
+                cache = engine.assign_row_pages(cache, row, alloc.rows[row],
+                                                host_len[row])
+        logits, cache = engine.decode(params, cache, toks)
+        nxt = logits.argmax(-1).to(torch.int32).cpu().numpy()
+        for row in (0, 1):
+            out[row].append(int(nxt[row]))
+            host_len[row] += 1
+        toks[:2, 0] = nxt[:2]
+    return {"branches": out, "cows": cows, "pages": (alloc.rows[0],
+                                                     alloc.rows[1])}
+
+
+def independent_decode(engine, params, prompt, steps) -> list:
+    """Greedy tokens of ``prompt`` alone in row 0 of a fresh paged cache
+    (the same 8-row decode calls): the first from its admission, then
+    ``steps`` decoded ones."""
+    req = Request(0, np.asarray(prompt, np.int32), steps + 1)
+    cache, logits = admit_rows(engine, params, [req], paged=True)
+    tok = int(logits[0].argmax())
+    out = [tok]
+    toks = np.zeros((PAGED.n_slots, 1), np.int32)
+    for _ in range(steps):
+        toks[0, 0] = tok
+        logits, cache = engine.decode(params, cache, toks)
+        tok = int(logits[0].argmax())
+        out.append(tok)
+    return out
+
+
+def paged_layer_errors(cfg, params, cache, token) -> list:
+    """Per layer: relative RMS error between the paged decode attention
+    sublayer through the kernel and through the plain path, both fed the
+    plain path's hidden state (each writes the same k/v into the pools)."""
+    lengths = cache.lengths
+    x = transformer._embed_in(cfg, params, token, None,
+                              lengths[:, None].long())
+    errs = []
+    for layer, p in enumerate(params["blocks"]):
+        spec = cfg.pattern[layer % cfg.period]
+        c = cache.layers[layer]
+        h = apply_norm(cfg, p["norm1"], x)
+        ys = [attention.attn_decode_layer_paged(
+            cfg, p["attn"], h, c["k"], c["v"], cache.page_table, lengths,
+            mixer=spec.mixer, page_size=cache.page_size, impl=impl,
+            k_scale=c.get("k_scale"), v_scale=c.get("v_scale"))[0].float()
+            for impl in ("pallas", "xla")]
+        errs.append(rel_rms(ys[0], ys[1]))
+        x = transformer._mlp_residual(cfg, spec, p, x + ys[1].to(x.dtype))
+    return errs
+
+
+def clone_paged(cache: PagedCache) -> PagedCache:
+    return PagedCache(layers=tuple({n: t.clone() for n, t in layer.items()}
+                                   for layer in cache.layers),
+                      page_table=cache.page_table.clone(),
+                      lengths=cache.lengths.clone(),
+                      page_size=cache.page_size)
+
+
+def tame_attention(cfg, params):
+    """Rescale every layer's q and k projections IN PLACE to the std
+    1/sqrt(d_model) of a fan-in init. The reference's init takes fan_in =
+    shape[-2], the head count, for the (d_model, heads, head_dim) kernels
+    (ROADMAP Queue 3), so at full width qwen2-7b's attention logits have
+    a std near 340 and the softmax is an argmax: one bf16 ulp anywhere
+    flips it somewhere, and two correct implementations (the dense
+    kernel and plain decode paths) give uncorrelated logits (relative RMS
+    1.18 on an H100). At this scale they agree to 0.007, so phase (f) can
+    hold one serving path to another."""
+    d = cfg.d_model
+    for p in params["blocks"]:
+        p["attn"]["wq"].mul_(math.sqrt(cfg.n_heads / d))
+        p["attn"]["wk"].mul_(math.sqrt(cfg.n_kv_heads / d))
+
+
+def paged_copy(engine, cache, seed: int = 0) -> PagedCache:
+    """A paged cache (pages of PAGED.page_size, a shuffled pool) holding
+    exactly ``cache``'s rows, lengths and values: the paged path over the
+    dense path's own KV."""
+    ps = PAGED.page_size
+    b, t = cache.layers[0]["k"].shape[:2]
+    max_pages = t // ps
+    n_pages = 1 + b * max_pages
+    paged = engine.new_paged_cache(b, n_pages, ps, max_pages)
+    perm = torch.randperm(n_pages - 1,
+                          generator=torch.Generator().manual_seed(seed)) + 1
+    table = perm.reshape(b, max_pages).to(cache.lengths.device)
+    paged.page_table.copy_(table)
+    paged.lengths.copy_(cache.lengths)
+    for dense, pools in zip(cache.layers, paged.layers):
+        for name, t_ in dense.items():
+            pools[name][table] = t_.reshape(b, max_pages, ps, *t_.shape[2:])
+    return paged
+
+
+def kv_bytes_per_token(cache) -> float:
+    """KV bytes a cached token costs, summed over layers (values and
+    scales): the cache's layer tensors over its token slots."""
+    k = cache.layers[0]["k"]
+    slots = k.shape[0] * k.shape[1]
+    return sum(t.numel() * t.element_size() for layer in cache.layers
+               for t in layer.values()) / slots
+
+
+def run_paged_int8(dev) -> dict:
+    """Phase (f): full-width qwen2-7b on the shared-prefix workload, dense
+    int8, paged bf16, paged int8 and paged int8 fused-sampled, beside a
+    dense bf16 run; returns the launch counts of its serving runs."""
+    cfg = configs.get("qwen2-7b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    engines = {"bf16": Engine(model, serve_cluster.RUN, device=dev),
+               "int8": Engine(model, dataclasses.replace(
+                   serve_cluster.RUN, kv_dtype="int8"), device=dev)}
+    plain = Engine(model, dataclasses.replace(serve_cluster.RUN,
+                                              attn_impl="xla"), device=dev)
+    batch = serve_cluster.make_prefix_requests(cfg.vocab_size, PAGED,
+                                               SEED)[:PAGED.n_slots]
+    # why the attention is tamed: at the reference's init two correct
+    # implementations (the dense kernel and plain paths) part ways
+    chaos = teacher_forced([(engines["bf16"], False), (plain, False)],
+                           params, batch, 8, near_ties_only=False)
+    print(f"(f) at the reference's init, dense kernel vs plain bf16, "
+          f"teacher-forced 8 rounds: {chaos['flips']} argmax flips in "
+          f"{chaos['rows']} rows, max |logit diff| "
+          f"{chaos['max_abs_diff']:.4g}, relative RMS {chaos['rel_rms']:.4g}"
+          f"; the rest of phase (f) draws q and k at fan_in = d_model")
+    tame_attention(cfg, params)
+    n_layers = cfg.n_layers
+    out = {"arch": cfg.name, "layers": n_layers,
+           "sizes": dataclasses.asdict(PAGED), "seed": SEED}
+    kernel_of = {("bf16", False): "decode_attention",
+                 ("int8", False): "decode_attention_quant",
+                 ("bf16", True): "paged_decode_attention",
+                 ("int8", True): "paged_decode_attention_quant"}
+    counts = dict(NO_LAUNCHES)
+
+    def serve_run(kv, paged, **kw):
+        reqs = serve_cluster.make_prefix_requests(cfg.vocab_size, PAGED,
+                                                  SEED)
+        ptrs, live = set(), []
+
+        def on_round(b):
+            ptrs.add(tuple(t.data_ptr() for t in b.cache.tensors()))
+            if b.allocator is not None:
+                live.append(b.allocator.n_live)
+
+        torch.cuda.synchronize()
+        reset_counts()
+        with _PlanSpy() as spy:
+            res = serve_cluster.serve(
+                engines[kv], params, reqs, n_slots=PAGED.n_slots,
+                max_len=PAGED.max_len, seed=SEED, on_round=on_round,
+                paged=paged, page_size=PAGED.page_size, **kw)
+        torch.cuda.synchronize()
+        got = read_counts()
+        for k, v in got.items():
+            counts[k] += v
+        b = res["batcher"]
+        rejected = b.take_rejected()
+        admissions = len(reqs) - len(rejected)
+        if rejected or len(res["completed"]) != len(reqs) or \
+                b.decode_dispatches != b.rounds or b.paged != paged:
+            raise AssertionError(f"{kv} paged={paged}: {len(rejected)} "
+                                 f"rejected, {len(res['completed'])} "
+                                 f"completed, {b.decode_dispatches} decode "
+                                 f"calls in {b.rounds} rounds")
+        want = dict(NO_LAUNCHES)
+        want[kernel_of[kv, paged]] = n_layers * b.rounds
+        if not paged:
+            want["flash_attention"] = n_layers * admissions
+        if b.fused_sampling:
+            want["fused_sample"] = admissions + b.rounds
+            if b.sampler_dispatches:
+                raise AssertionError(f"{b.sampler_dispatches} host-sampler "
+                                     f"steps with fused sampling")
+        if got != want:
+            raise AssertionError(f"{kv} paged={paged}: launches {got}, "
+                                 f"want {want}")
+        if len(ptrs) != 1:
+            raise AssertionError(f"{kv} paged={paged}: the cache's tensors "
+                                 f"moved between rounds")
+        r = {"rounds": b.rounds, "admissions": admissions,
+             "tokens": res["tokens"], "wall_s": res["wall_s"],
+             "tokens_per_s": res["tokens"] / res["wall_s"],
+             "decode_ms_per_round": 1e3 * (res["bucket_s"]["decode_attention"]
+                                           + res["bucket_s"]["sampler"])
+             / b.rounds,
+             "prefill_ms_per_admission": 1e3 * res["bucket_s"]["prefill"]
+             / admissions, "launches": got}
+        if paged:
+            shared = [p.n_shared for p in spy.plans]
+            r.update(warm=sum(n == PAGED.prefix_len // PAGED.page_size
+                              for n in shared),
+                     n_shared=shared, peak_live_pages=max(live),
+                     pool_pages=b.allocator.n_pages)
+        print(f"(f) {kv} {'paged' if paged else 'dense'}"
+              f"{' fused-sampled' if b.fused_sampling else ''}: "
+              f"{json.dumps({k: v for k, v in r.items() if k != 'n_shared'})}")
+        return reqs, r, b
+
+    dense16, out["dense_bf16"], _ = serve_run("bf16", False)
+    dense8, out["dense_int8"], b8 = serve_run("int8", False)
+    paged16, out["paged_bf16"], _ = serve_run("bf16", True)
+    paged8, out["paged_int8"], _ = serve_run("int8", True)
+    _, out["paged_int8_fused"], _ = serve_run(
+        "int8", True, fused_sampling=True, **serve_cluster.SAMPLING)
+    n_req = PAGED.n_groups * PAGED.group_size
+    want_warm = n_req - PAGED.n_groups
+    for key in ("paged_bf16", "paged_int8", "paged_int8_fused"):
+        if out[key]["warm"] != want_warm:
+            raise AssertionError(f"{key}: {out[key]['warm']} warm "
+                                 f"admissions, want {want_warm}: "
+                                 f"{out[key]['n_shared']}")
+    print(f"(f) prefix sharing: {want_warm} of {n_req} admissions share "
+          f"{PAGED.prefix_len // PAGED.page_size} pages in each paged run; "
+          f"peak live pages {out['paged_bf16']['peak_live_pages']} of a "
+          f"worst-case pool of {out['paged_bf16']['pool_pages']}")
+
+    # KV bytes per token: int8 (values + scales) against bf16
+    c16 = engines["bf16"].new_cache(1, 1)
+    c8 = engines["int8"].new_cache(1, 1)
+    out["kv_bytes_per_token"] = {"bf16": kv_bytes_per_token(c16),
+                                 "int8": kv_bytes_per_token(c8)}
+    ratio = out["kv_bytes_per_token"]["int8"] / \
+        out["kv_bytes_per_token"]["bf16"]
+    print(f"(f) KV bytes per token: int8 "
+          f"{out['kv_bytes_per_token']['int8']:.0f}, bf16 "
+          f"{out['kv_bytes_per_token']['bf16']:.0f} ({ratio:.3f}x)")
+    if out["kv_bytes_per_token"] != {"bf16": 2.0 * 2 * cfg.n_kv_heads
+                                     * cfg.head_dim * n_layers,
+                                     "int8": 2.0 * cfg.n_kv_heads
+                                     * (cfg.head_dim + 4) * n_layers}:
+        raise AssertionError(f"KV bytes {out['kv_bytes_per_token']}")
+
+    # two serving paths on the same rows, teacher-forced: the yardstick is
+    # the dense kernel vs plain paths (two correct implementations)
+    tf = {}
+    for name, pair in (
+            ("dense_kernel_vs_plain_bf16", ((engines["bf16"], False),
+                                            (plain, False))),
+            ("paged_vs_dense_bf16", ((engines["bf16"], False),
+                                     (engines["bf16"], True))),
+            ("paged_vs_dense_int8", ((engines["int8"], False),
+                                     (engines["int8"], True))),
+            ("int8_vs_bf16_dense", ((engines["bf16"], False),
+                                    (engines["int8"], False)))):
+        tf[name] = teacher_forced(pair, params, batch, TEACHER_ROUNDS)
+        print(f"(f) {name}, teacher-forced {TEACHER_ROUNDS} rounds on "
+              f"{PAGED.n_slots} rows: {tf[name]['flips']} argmax flips in "
+              f"{tf[name]['rows']} rows (all near-ties), max |logit diff| "
+              f"{tf[name]['max_abs_diff']:.4g}, relative RMS "
+              f"{tf[name]['rel_rms']:.4g} (tol {PATH_RTOL})")
+        if tf[name]["rel_rms"] > PATH_RTOL:
+            raise AssertionError(f"{name}: logits drift: {tf[name]}")
+    tie = {kv: NOISE_FACTOR * tf[f"paged_vs_dense_{kv}"]["max_abs_diff"]
+           + LOGIT_FLOOR for kv in ("bf16", "int8")}
+    prompts = [r.prompt for r in dense16]
+    parted16 = parted_at_near_ties(
+        engines["bf16"], params, prompts, [r.generated for r in dense16],
+        [r.generated for r in paged16], tie["bf16"])
+    parted8 = parted_at_near_ties(
+        engines["int8"], params, prompts, [r.generated for r in dense8],
+        [r.generated for r in paged8], tie["int8"])
+    print(f"(f) greedy streams: paged bf16 vs dense bf16 {parted16} of "
+          f"{n_req} parted, paged int8 vs dense int8 {parted8} parted, all "
+          f"at near-ties (bounds {tie['bf16']:.4g}, {tie['int8']:.4g})")
+    out.update(teacher_forced=tf, near_tie_bound=tie,
+               teacher_forced_reference_init=chaos,
+               streams_parted_paged_bf16=parted16,
+               streams_parted_paged_int8=parted8)
+
+    # the paged path over the dense path's own KV: bit for bit
+    for kv in ("bf16", "int8"):
+        eng = engines[kv]
+        dense, logits = admit_rows(eng, params, batch, paged=False)
+        paged = paged_copy(eng, dense)
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        for step in range(8):
+            ld, _ = eng.decode(params, dense, tok)
+            lp, _ = eng.decode(params, paged, tok)
+            if not torch.equal(ld, lp):
+                raise AssertionError(f"{kv}: paged decode over the dense "
+                                     f"cache's KV differs at round {step}: "
+                                     f"{float((ld - lp).abs().max())}")
+            tok = ld.argmax(-1).to(torch.int32)[:, None]
+        del dense, paged
+    print("(f) paged decode over a shuffled-pool copy of a dense cache: "
+          "logits equal the dense decode's bit for bit, 8 rounds, bf16 and "
+          "int8")
+
+    # fork + copy-on-write at full width vs independent decodes
+    fork = fork_divergence(engines["bf16"], params, batch[0])
+    n = len(batch[0].prompt)
+    (p0, p1), n_full = fork["pages"], n // PAGED.page_size
+    # row 0 writes first each round, so it copies every shared page it
+    # writes into; the full prompt pages stay shared
+    written = sorted({pos // PAGED.page_size
+                      for pos in range(n, n + FORK_STEPS)})
+    if len(fork["cows"]) != len(written) or p0[:n_full] != p1[:n_full] or \
+            any(p0[i] == p1[i] for i in written):
+        raise AssertionError(f"copy-on-write: {fork['cows']} copies for "
+                             f"pages {written}, pages {p0} / {p1}")
+    ind0 = independent_decode(engines["bf16"], params, batch[0].prompt,
+                              FORK_STEPS)
+    forced = np.concatenate([batch[0].prompt, [fork["branches"][1][0]]])
+    ind1 = independent_decode(engines["bf16"], params, forced,
+                              FORK_STEPS - 1)
+    parted_fork = parted_at_near_ties(
+        engines["bf16"], params, [batch[0].prompt, forced],
+        [ind0, ind1], [fork["branches"][0], fork["branches"][1][1:]],
+        tie["bf16"])
+    print(f"(f) fork_row + copy-on-write: {len(fork['cows'])} pages copied "
+          f"{fork['cows']}, {n_full} full pages still shared; branches "
+          f"vs independent decodes: {parted_fork} of 2 parted (near-ties), "
+          f"branch 0 equal: {fork['branches'][0] == ind0}")
+    out["fork_branches_parted"] = parted_fork
+
+    # the kernels inside the real model: each paged layer, kernel vs plain
+    cache8, _ = admit_rows(engines["int8"], params, batch, paged=True)
+    token = torch.tensor([[r.prompt[-1]] for r in batch], device=dev)
+    with torch.no_grad():
+        layer_err = paged_layer_errors(cfg, params, clone_paged(cache8),
+                                       token)
+    print(f"(f) per-layer paged int8 decode attention, kernel vs plain on "
+          f"the same input: relative RMS max {max(layer_err):.3g} over "
+          f"{len(layer_err)} layers (tol {LAYER_RTOL})")
+    if max(layer_err) > LAYER_RTOL:
+        raise AssertionError(f"paged int8 sublayer disagrees: {layer_err}")
+
+    # decode round times on CUDA events, one cache of each layout, timed in
+    # turns (each layout twice, in the order ABCD DCBA) so drift of the
+    # shared host falls on all four alike
+    tok = token.to(torch.int32)
+    layouts = {}
+    for kv in ("bf16", "int8"):
+        for paged in (False, True):
+            cache, _ = admit_rows(engines[kv], params, batch, paged)
+            layouts[f"{'paged' if paged else 'dense'}_{kv}"] = (
+                engines[kv], cache)
+    times = {name: [] for name in layouts}
+    for name in list(layouts) + list(reversed(layouts)):
+        eng, cache = layouts[name]
+        times[name].append(cuda_ms(lambda: eng.decode(params, cache, tok),
+                                   iters=5, warmup=1))
+    rounds = {}
+    for name, (eng, cache) in layouts.items():
+        ms = sum(times[name]) / len(times[name])
+        prof = profile_round(lambda: eng.decode(params, cache, tok))
+        rounds[name] = {"ms": ms, "ms_turns": times[name],
+                        "busy_ms": prof["busy_ms"],
+                        "launches": prof["launches"],
+                        "idle_share": 1 - prof["busy_ms"] / ms,
+                        "top_kernels_us": prof["breakdown"]}
+        print(f"(f) decode round {name}: {ms:.3f} ms on CUDA events (turns "
+              f"{[round(t, 3) for t in times[name]]}), device busy "
+              f"{prof['busy_ms']:.3f} ms in {prof['launches']:.0f} launches,"
+              f" idle share {1 - prof['busy_ms'] / ms:.3f}; top kernels "
+              f"(us/round) {prof['breakdown']}")
+    del layouts
+    out["decode_round"] = rounds
+    out["launches"] = counts
+    print("paged_int8 " + json.dumps(out))
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device here; this script runs the port "
@@ -1049,6 +1789,8 @@ def main():
     kernels = [phase("(a) flash attention vs plain", check_kernel),
                phase("(a2) decode attention vs plain", check_decode_kernel),
                phase("(a2) fused sampling vs plain", check_sampling_kernel)]
+    kernels += phase("(a3) int8 / paged decode attention vs plain",
+                     check_variant_kernels)
     paths = {"offline_distilbert": {"flash_attention": phase(
         "(b) offline job, distilbert-imdb", run_main_path)}}
     paths["generate_qwen2_7b"], streams = phase(
@@ -1061,14 +1803,24 @@ def main():
     paths["serve_cluster_main"] = phase(
         "(e) entry point serve_cluster.main",
         lambda d: run_entry_point(d, streams, job_tokens))
+    torch.cuda.empty_cache()
+    paths["paged_int8_qwen2_7b"] = phase(
+        "(f) paged and int8 serving, qwen2-7b", run_paged_int8)
+    # the path each kernel must have been launched on
+    main_path = {"flash_attention": "generate_qwen2_7b",
+                 "decode_attention": "generate_qwen2_7b",
+                 "fused_sample": "generate_qwen2_7b",
+                 "decode_attention_quant": "paged_int8_qwen2_7b",
+                 "paged_decode_attention": "paged_int8_qwen2_7b",
+                 "paged_decode_attention_quant": "paged_int8_qwen2_7b"}
     for k in kernels:
         by_path = {name: counts.get(k["name"], 0)
                    for name, counts in paths.items()}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
-        if by_path["generate_qwen2_7b"] == 0:
-            raise AssertionError(f"{k['name']} was not launched on the "
-                                 f"generative path")
+        if by_path[main_path[k["name"]]] == 0:
+            raise AssertionError(f"{k['name']} was not launched on "
+                                 f"{main_path[k['name']]}")
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "launches_by_path"]

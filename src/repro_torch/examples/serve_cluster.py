@@ -75,6 +75,25 @@ SEED = 0  # weights, requests and prompts
 RUN = RunConfig(attn_impl="pallas", cache_pad=64)
 
 
+@dataclasses.dataclass(frozen=True)
+class PrefixSizes:
+    """A workload whose requests come in groups that share a prompt prefix
+    (a shared system prompt), for the paged cache's prefix sharing."""
+    n_groups: int
+    group_size: int
+    prefix_len: int          # shared tokens, whole pages
+    suffix_len: tuple        # [lo, hi) tokens after the prefix
+    new_tokens: tuple        # [lo, hi) tokens
+    n_slots: int
+    max_len: int
+    page_size: int
+
+
+# On the card: 24 requests in three groups of eight, each group sharing a
+# 448-token prefix (28 full pages of 16), over 8 slots of 1024 positions.
+PAGED_CARD_SIZES = PrefixSizes(3, 8, 448, (16, 65), (16, 65), 8, 1024, 16)
+
+
 def make_requests(vocab: int, n: int, prompt_len: tuple, new_tokens: tuple,
                   seed: int = 0) -> List[Request]:
     """``n`` requests of random prompts, drawn from a numpy seed."""
@@ -84,6 +103,24 @@ def make_requests(vocab: int, n: int, prompt_len: tuple, new_tokens: tuple,
         prompt = rng.integers(0, vocab, int(rng.integers(*prompt_len)))
         reqs.append(Request(rid, prompt.astype(np.int32),
                             max_new_tokens=int(rng.integers(*new_tokens))))
+    return reqs
+
+
+def make_prefix_requests(vocab: int, sizes: PrefixSizes,
+                         seed: int = 0) -> List[Request]:
+    """``sizes.n_groups`` groups of ``sizes.group_size`` requests, drawn
+    from a numpy seed: each group's prompts share one random prefix and
+    go on with a random suffix of their own."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for _ in range(sizes.n_groups):
+        prefix = rng.integers(0, vocab, sizes.prefix_len)
+        for _ in range(sizes.group_size):
+            suffix = rng.integers(0, vocab,
+                                  int(rng.integers(*sizes.suffix_len)))
+            reqs.append(Request(
+                len(reqs), np.concatenate([prefix, suffix]).astype(np.int32),
+                max_new_tokens=int(rng.integers(*sizes.new_tokens))))
     return reqs
 
 

@@ -1,12 +1,18 @@
-"""Public wrapper for the hand-written decode-attention kernel.
+"""Public wrappers for the hand-written decode-attention kernels.
 
-Counterpart of ``repro.kernels.decode_attention.ops.decode_attention``
-(the dense, non-quantized entry; the int8, paged and partials variants
-are still to be ported, ROADMAP Queue 2). For CUDA tensors it always
-launches the CUDA kernel (``decode_attention.cu``) at every cache length:
-the reference's below-64-position fallback is not carried over and T
-needs no padding. For CPU tensors, and only for them, it runs the plain
-version (``ref.py``).
+Counterpart of ``repro.kernels.decode_attention.ops``:
+``decode_attention`` (dense cache, bf16/fp32 or int8 with per-token
+scales) and ``paged_decode_attention`` (a shared page pool read through
+a per-row page table, bf16/fp32 or int8). The partials variant is still
+to be ported (ROADMAP Queue 2 #3). For CUDA tensors every call launches
+its CUDA kernel (``decode_attention.cu``, one entry point per variant) at
+every size: the reference's fallbacks to its oracle (``T < 64``,
+``ps * Pmax < 64``) are not carried over and T is never padded. For CPU
+tensors, and only for them, the plain version (``ref.py``) runs.
+
+Each variant counts its own launches: ``launches`` (dense),
+``quant_launches`` (dense int8), ``paged_launches`` and
+``paged_quant_launches``.
 """
 from __future__ import annotations
 
@@ -17,92 +23,219 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
-                                                      row_lengths)
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_quant_ref, decode_attention_ref,
+    paged_decode_attention_quant_ref, paged_decode_attention_ref,
+    row_lengths)
 
 SOURCE = Path(__file__).with_name("decode_attention.cu")
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
 DTYPES = (torch.float32, torch.bfloat16)
 
-launches = 0  # kernel launches; callers reset it to count one run
+# kernel launches per variant; callers reset them to count one run
+launches = 0
+quant_launches = 0
+paged_launches = 0
+paged_quant_launches = 0
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (q, k, v[, k_scale, v_scale], lengths[, page_table], o, is_bf16, ...)
+_ARGTYPES = {
+    "decode_attention_fwd": [_P] * 5 + [_I] * 7 + [_F, _P],
+    "decode_attention_quant_fwd": [_P] * 7 + [_I] * 7 + [_F, _P],
+    "paged_decode_attention_fwd": [_P] * 6 + [_I] * 9 + [_F, _P],
+    "paged_decode_attention_quant_fwd": [_P] * 8 + [_I] * 9 + [_F, _P],
+}
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
-    fn = lib.decode_attention_fwd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
-def _check_cuda_inputs(q, k_cache, v_cache, lengths):
-    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    ("lengths", lengths)):
+def _on_cpu(*xs) -> bool:
+    return all(x.device.type == "cpu" for x in xs if x is not None)
+
+
+def _check_cuda_inputs(q, kv_dtype, named):
+    """Every tensor on q's CUDA device and contiguous; q in DTYPES; the
+    caches (or pools) of ``kv_dtype`` and 16-byte aligned."""
+    for name, x in named:
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError(
-                f"{name} is on {x.device}: the kernel takes q, the caches "
-                f"and lengths on one CUDA device (CPU tensors take the "
-                f"plain version)")
+                f"{name} is on {x.device}: the kernel takes every input on "
+                f"one CUDA device (CPU tensors take the plain version)")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if x.dtype != q.dtype:
-            raise ValueError(f"{name} is {x.dtype}, q is {q.dtype}")
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
-                             f"loads 16 bytes at a time)")
     if q.dtype not in DTYPES:
         raise ValueError(f"dtype {q.dtype} not in {DTYPES}")
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"head_dim {q.shape[-1]} not in {HEAD_DIMS}")
+    for name, x in named:
+        if name in ("k_cache", "v_cache", "k_pages", "v_pages"):
+            if x.dtype != kv_dtype:
+                raise ValueError(f"{name} is {x.dtype}, want {kv_dtype}")
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned (the "
+                                 f"kernel loads 16 bytes at a time)")
 
 
-def decode_attention(q, k_cache, v_cache, lengths, *,
-                     window: Optional[int] = None,
-                     softcap: Optional[float] = None):
-    """q: (B,H,D); caches: (B,T,KV,D); lengths: () or (B,) int32.
-
-    Returns (B,H,D); row b attends kv positions j <= lengths[b], and
-    j > lengths[b] - window when a window is set. A length at or past T
-    sees every position (the reference's clamped-write semantics).
-    """
-    if q.ndim != 3 or k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
-        raise ValueError(f"want q (B,H,D) and caches (B,T,KV,D); got "
-                         f"{tuple(q.shape)}, {tuple(k_cache.shape)}, "
-                         f"{tuple(v_cache.shape)}")
+def _check_common(q, k, v, kv_shape_name: str, window, softcap):
+    if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"want q (B,H,D) and {kv_shape_name}; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     b, h, d = q.shape
-    t, kv = k_cache.shape[1], k_cache.shape[2]
-    if k_cache.shape[0] != b or k_cache.shape[3] != d:
-        raise ValueError(f"caches {tuple(k_cache.shape)} do not match q "
+    kv = k.shape[2]
+    if k.shape[3] != d:
+        raise ValueError(f"{kv_shape_name} {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)}")
     if h % kv:
         raise ValueError(f"q heads {h} not a multiple of kv heads {kv}")
-    if min(b, t, h) < 1:
+    if min(b, k.shape[0], k.shape[1], h) < 1:
         raise ValueError(f"empty decode attention: q {tuple(q.shape)}, "
-                         f"caches {tuple(k_cache.shape)}")
+                         f"{kv_shape_name} {tuple(k.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
+
+
+def _check_scales(k, k_scale, v_scale):
+    """int8 data with fp32 (..., 1) scales beside it, or neither."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass k_scale and v_scale together")
+    if k_scale is None:
+        return False
+    want = tuple(k.shape[:-1]) + (1,)
+    for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if tuple(s.shape) != want or s.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 of shape {want}, got "
+                             f"{s.dtype} {tuple(s.shape)}")
+    if k.dtype != torch.int8:
+        raise ValueError(f"scales mark an int8 cache, got {k.dtype}")
+    return True
+
+
+def _launch(fn_name: str, q, *args):
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = getattr(lib, fn_name)(
+            *args, torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error "
+                           f"{err}")
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *, k_scale=None,
+                     v_scale=None, window: Optional[int] = None,
+                     softcap: Optional[float] = None):
+    """q: (B,H,D); caches: (B,T,KV,D); lengths: () or (B,) int32.
+
+    Returns (B,H,D) in q's dtype; row b attends kv positions
+    j <= lengths[b], and j > lengths[b] - window when a window is set. A
+    length at or past T sees every position (the reference's clamped-write
+    semantics). ``k_scale``/``v_scale`` (both (B,T,KV,1) fp32, or both
+    None) mark the caches as int8 with per-token scales: the int8 kernel
+    dequantizes in the tile.
+    """
+    _check_common(q, k_cache, v_cache, "caches (B,T,KV,D)", window, softcap)
+    quant = _check_scales(k_cache, k_scale, v_scale)
+    b, h, d = q.shape
+    t, kv = k_cache.shape[1], k_cache.shape[2]
+    if k_cache.shape[0] != b:
+        raise ValueError(f"caches {tuple(k_cache.shape)} do not match q "
+                         f"{tuple(q.shape)}")
     lengths = row_lengths(lengths, b, q.device).contiguous()
-    if all(x.device.type == "cpu" for x in (q, k_cache, v_cache)):
+    if _on_cpu(q, k_cache, v_cache, k_scale, v_scale):
+        if quant:
+            return decode_attention_quant_ref(q, k_cache, v_cache, k_scale,
+                                              v_scale, lengths,
+                                              window=window, softcap=softcap)
         return decode_attention_ref(q, k_cache, v_cache, lengths,
                                     window=window, softcap=softcap)
-    _check_cuda_inputs(q, k_cache, v_cache, lengths)
-    lib = _library()
+    named = [("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+             ("lengths", lengths)]
+    if quant:
+        named += [("k_scale", k_scale), ("v_scale", v_scale)]
+    _check_cuda_inputs(q, torch.int8 if quant else q.dtype, named)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = lib.decode_attention_fwd(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, t, h, kv, d, window or 0,
-            float(softcap or 0.0),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
-                           f"error {err}")
-    global launches
-    launches += 1
+    dims = (int(q.dtype == torch.bfloat16), b, t, h, kv, d, window or 0,
+            float(softcap or 0.0))
+    global launches, quant_launches
+    if quant:
+        _launch("decode_attention_quant_fwd", q, q.data_ptr(),
+                k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
+                v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                *dims)
+        quant_launches += 1
+    else:
+        _launch("decode_attention_fwd", q, q.data_ptr(), k_cache.data_ptr(),
+                v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                *dims)
+        launches += 1
+    return out
+
+
+def paged_decode_attention(q, k_pages, v_pages, lengths, page_table, *,
+                           k_scale=None, v_scale=None,
+                           window: Optional[int] = None,
+                           softcap: Optional[float] = None):
+    """Decode attention through a block-paged KV cache.
+
+    q: (B,H,D); pools: (P, page_size, KV, D); page_table: (B, Pmax) int32;
+    lengths: () or (B,) int32. Row b attends LOGICAL positions
+    j <= lengths[b] (and j > lengths[b] - window when windowed); its
+    logical page i is physical page ``page_table[b, i]``, and a length at
+    or past ``Pmax * page_size`` sees every logical position. Table
+    entries must lie in [0, P). Returns (B,H,D) in q's dtype.
+    ``k_scale``/``v_scale`` (both (P, page_size, KV, 1) fp32 pools, or
+    both None) mark the pools as int8; the scales are read through the
+    same table.
+    """
+    _check_common(q, k_pages, v_pages, "pools (P,ps,KV,D)", window, softcap)
+    quant = _check_scales(k_pages, k_scale, v_scale)
+    b, h, d = q.shape
+    n_pages, ps, kv = k_pages.shape[:3]
+    if page_table.ndim != 2 or page_table.shape[0] != b or \
+            page_table.shape[1] < 1:
+        raise ValueError(f"page_table {tuple(page_table.shape)} is not "
+                         f"(B={b}, Pmax)")
+    lengths = row_lengths(lengths, b, q.device).contiguous()
+    if _on_cpu(q, k_pages, v_pages, k_scale, v_scale, page_table):
+        if quant:
+            return paged_decode_attention_quant_ref(
+                q, k_pages, v_pages, k_scale, v_scale, lengths, page_table,
+                window=window, softcap=softcap)
+        return paged_decode_attention_ref(q, k_pages, v_pages, lengths,
+                                          page_table, window=window,
+                                          softcap=softcap)
+    if page_table.dtype != torch.int32:
+        raise ValueError(f"page_table is {page_table.dtype}, want int32")
+    named = [("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+             ("lengths", lengths), ("page_table", page_table)]
+    if quant:
+        named += [("k_scale", k_scale), ("v_scale", v_scale)]
+    _check_cuda_inputs(q, torch.int8 if quant else q.dtype, named)
+    out = torch.empty_like(q)
+    dims = (int(q.dtype == torch.bfloat16), b, n_pages, ps,
+            page_table.shape[1], h, kv, d, window or 0,
+            float(softcap or 0.0))
+    global paged_launches, paged_quant_launches
+    if quant:
+        _launch("paged_decode_attention_quant_fwd", q, q.data_ptr(),
+                k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),
+                v_scale.data_ptr(), lengths.data_ptr(),
+                page_table.data_ptr(), out.data_ptr(), *dims)
+        paged_quant_launches += 1
+    else:
+        _launch("paged_decode_attention_fwd", q, q.data_ptr(),
+                k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
+                page_table.data_ptr(), out.data_ptr(), *dims)
+        paged_launches += 1
     return out

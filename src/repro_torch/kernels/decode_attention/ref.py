@@ -1,16 +1,21 @@
-"""Plain torch version of the decode-attention kernel (no custom kernel).
+"""Plain torch versions of the decode-attention kernels (no custom kernel).
 
-Counterpart of ``repro.kernels.decode_attention.ref.decode_attention_ref``,
-op for op. The CPU tests run it, and ``chip_smoke.py`` holds the CUDA
-kernel against it on the card. ``lengths`` may be a scalar or a ``(B,)``
-int32 vector: a vector makes the batch RAGGED, each row attending up to
-its own current index.
+Counterpart of ``repro.kernels.decode_attention.ref``, op for op:
+``decode_attention_ref``, ``gather_pages`` and
+``paged_decode_attention_ref``, plus the int8 plain versions, which
+dequantize and then call the bf16 ones (what the reference's wrappers and
+its "xla" path do, ``ops.py:55-59,104-107``). The CPU tests run them, and
+``chip_smoke.py`` holds each CUDA kernel against its plain version on the
+card. ``lengths`` may be a scalar or a ``(B,)`` int32 vector: a vector
+makes the batch RAGGED, each row attending up to its own current index.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels.decode_attention.quant import dequantize_kv
 
 NEG_INF = -1e30
 
@@ -47,3 +52,50 @@ def decode_attention_ref(q, k_cache, v_cache, lengths, *,
     p = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkgt,btkd->bkgd", p, v_cache.to(ct))
     return o.reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention_quant_ref(q, k_cache, v_cache, k_scale, v_scale,
+                               lengths, *, window: Optional[int] = None,
+                               softcap: Optional[float] = None):
+    """int8 caches (B,T,KV,D) with fp32 scales (B,T,KV,1): dequantize,
+    then :func:`decode_attention_ref`."""
+    return decode_attention_ref(q, dequantize_kv(k_cache, k_scale),
+                                dequantize_kv(v_cache, v_scale), lengths,
+                                window=window, softcap=softcap)
+
+
+def gather_pages(pages, page_table):
+    """Materialize the dense per-row KV view of a paged pool.
+
+    pages: (P, ps, KV, D) physical page pool; page_table: (B, Pmax) int32
+    mapping row b's logical page i to physical page ``page_table[b, i]``.
+    Returns (B, Pmax*ps, KV, D): row b's KV laid out contiguously, the
+    array a dense cache would hold.
+    """
+    b, pmax = page_table.shape
+    ps = pages.shape[1]
+    flat = pages[page_table.reshape(-1).long()]
+    return flat.reshape(b, pmax * ps, *pages.shape[2:])
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, lengths, page_table, *,
+                               window: Optional[int] = None,
+                               softcap: Optional[float] = None):
+    """Gather through the page table, then the dense ragged version.
+    q: (B,H,D); pools: (P, ps, KV, D); page_table: (B, Pmax) int32; row b
+    attends LOGICAL positions j <= lengths[b]. Returns (B,H,D)."""
+    return decode_attention_ref(q, gather_pages(k_pages, page_table),
+                                gather_pages(v_pages, page_table), lengths,
+                                window=window, softcap=softcap)
+
+
+def paged_decode_attention_quant_ref(q, k_pages, v_pages, k_scale, v_scale,
+                                     lengths, page_table, *,
+                                     window: Optional[int] = None,
+                                     softcap: Optional[float] = None):
+    """int8 pools (P, ps, KV, D) with fp32 scale pools (P, ps, KV, 1):
+    dequantize, then :func:`paged_decode_attention_ref`."""
+    return paged_decode_attention_ref(q, dequantize_kv(k_pages, k_scale),
+                                      dequantize_kv(v_pages, v_scale),
+                                      lengths, page_table, window=window,
+                                      softcap=softcap)

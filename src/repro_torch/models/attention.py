@@ -1,26 +1,28 @@
-"""GQA attention: full-sequence (train / prefill / classification) and
-single-token decode paths.
+"""GQA attention: full-sequence (train / prefill / classification),
+single-token decode and chunked paged prefill paths.
 
-Counterpart of ``repro.models.attention`` for dense caches: grouped-query
-attention, causal / bidirectional / sliding-window masks, logit
-softcapping, QKV / output biases, RoPE or external positions, and ragged
-batched decode over a shared cache.
+Counterpart of ``repro.models.attention``: grouped-query attention,
+causal / bidirectional / sliding-window masks, logit softcapping, QKV /
+output biases, RoPE or external positions, ragged batched decode over a
+shared cache, dense or block-paged, with bf16 or int8 (per-token-scaled)
+KV.
 
 ``impl`` dispatch:
   * "xla"    — plain torch path (``_attend_dense``, the reference's
                einsum path, query-chunked past 2 * Q_CHUNK; for decode
-               the decode kernel's plain version, ``decode_attention_ref``)
+               the decode kernels' plain versions, int8 dequantized first)
   * "pallas" — the hand-written CUDA kernels (``kernels/flash_attention``
                for full sequences, ``kernels/decode_attention`` for
-               decode), which take the role of the reference's Pallas
-               kernels
-  * "seq_shard" and int8 KV caches are not ported yet: they raise
-    ``NotImplementedError`` (ROADMAP Queue 1 #8 and #5).
+               decode, dense, paged and int8), which take the role of the
+               reference's Pallas kernels
+  * "seq_shard" is not ported yet: it raises ``NotImplementedError``
+    (ROADMAP Queue 1 #8); with an int8 or a paged cache it raises the
+    reference's ``ValueError``.
 
 The projections are single matmuls over the flattened head dims, so q, k
-and v come out contiguous, as the kernels want them. Decode writes the
-new token's k/v into the caller's cache IN PLACE (the reference donates
-the cache buffer to the same effect).
+and v come out contiguous, as the kernels want them. Decode and paged
+prefill write the new k/v (and scales) into the caller's cache or pools
+IN PLACE (the reference donates the cache buffer to the same effect).
 """
 from __future__ import annotations
 
@@ -29,7 +31,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention.quant import (dequantize_kv,
+                                                        quantize_kv)
 from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
+                                                      gather_pages,
                                                       row_lengths)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.common import AxSpec, ModelConfig, apply_rope, softcap
@@ -156,14 +161,16 @@ def attend_full(q, k, v, *, mask_kind: str = "causal",
         for off in range(0, s, Q_CHUNK)], dim=1)
 
 
-def _not_ported(impl: str, quant: bool):
-    if impl == "seq_shard":
-        raise NotImplementedError(
-            "attn_impl='seq_shard' (sequence-sharded decode) is not ported "
-            "yet (ROADMAP.md Queue 1 #8)")
+def _check_seq_shard(impl: str, quant: bool):
+    if impl != "seq_shard":
+        return
     if quant:
-        raise NotImplementedError(
-            "int8 KV caches are not ported yet (ROADMAP.md Queue 1 #5)")
+        raise ValueError(
+            "int8 KV caches do not support attn_impl='seq_shard' — use "
+            "kv_dtype='bf16' with sequence sharding (see serving/README.md)")
+    raise NotImplementedError(
+        "attn_impl='seq_shard' (sequence-sharded decode) is not ported yet "
+        "(ROADMAP.md Queue 1 #8)")
 
 
 def attend_decode(q, k_cache, v_cache, lengths, *, k_scale=None,
@@ -175,13 +182,19 @@ def attend_decode(q, k_cache, v_cache, lengths, *, k_scale=None,
     token; row b attends kv positions j <= lengths[b] (the new token's
     k/v must already be written). A (B,) vector makes the batch RAGGED:
     one call serves every continuous-batching slot at its own position.
+    ``k_scale``/``v_scale`` ((B,Smax,KV,1) fp32, both or neither) mark the
+    caches as int8: the kernel dequantizes in the tile, the plain path
+    dequantizes first.
     """
-    _not_ported(impl, k_scale is not None or v_scale is not None)
+    _check_seq_shard(impl, k_scale is not None)
     lengths = row_lengths(lengths, q.shape[0], q.device)
     if impl == "pallas":
         return da_ops.decode_attention(
-            q[:, 0], k_cache, v_cache, lengths, window=window,
-            softcap=cap)[:, None]
+            q[:, 0], k_cache, v_cache, lengths, k_scale=k_scale,
+            v_scale=v_scale, window=window, softcap=cap)[:, None]
+    if k_scale is not None:
+        k_cache = dequantize_kv(k_cache, k_scale)
+        v_cache = dequantize_kv(v_cache, v_scale)
     return decode_attention_ref(q[:, 0], k_cache, v_cache, lengths,
                                 window=window, softcap=cap)[:, None]
 
@@ -224,6 +237,16 @@ def write_kv_rows(cache, new, lengths):
     return cache
 
 
+def _project_decode(cfg: ModelConfig, p, x, lengths):
+    """q, k, v of one token per row, RoPE'd at each row's own index."""
+    q, k, v = project_qkv(cfg, p, x)  # q, k, v: (B,1,.,hd)
+    if cfg.pos == "rope":
+        pos = lengths[:, None]  # (B,1): each row rotates at its own index
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    return q, k, v
+
+
 def attn_decode_layer(cfg: ModelConfig, p, x, k_cache, v_cache, lengths, *,
                       mixer: str, impl: str = "xla", k_scale=None,
                       v_scale=None):
@@ -233,18 +256,164 @@ def attn_decode_layer(cfg: ModelConfig, p, x, k_cache, v_cache, lengths, *,
     Returns (y, k_cache, v_cache), the caches being the ones passed in.
     ``lengths`` is scalar or (B,): per-row positions let one shared
     batched cache serve rows at different decode depths. RoPE rotates
-    each row at its own (unclamped) index.
+    each row at its own (unclamped) index. With ``k_scale``/``v_scale``
+    ((B,Smax,KV,1) fp32) the caches are int8: the new token's post-RoPE
+    k/v are quantized per token, values and scales are written at the
+    same clamped position, and the return is the 5-tuple
+    (y, k_cache, v_cache, k_scale, v_scale).
     """
-    _not_ported(impl, k_scale is not None or v_scale is not None)
+    quant = k_scale is not None
+    _check_seq_shard(impl, quant)
     lengths = row_lengths(lengths, x.shape[0], x.device)
-    q, k, v = project_qkv(cfg, p, x)  # q, k, v: (B,1,.,hd)
-    if cfg.pos == "rope":
-        pos = lengths[:, None]  # (B,1): each row rotates at its own index
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
+    q, k, v = _project_decode(cfg, p, x, lengths)
     window = cfg.window if mixer == "attn_local" else None
+    if quant:
+        k, ks_new = quantize_kv(k)  # (B,1,KV,hd) int8, (B,1,KV,1) fp32
+        v, vs_new = quantize_kv(v)
+        write_kv_rows(k_scale, ks_new, lengths)
+        write_kv_rows(v_scale, vs_new, lengths)
     write_kv_rows(k_cache, k, lengths)
     write_kv_rows(v_cache, v, lengths)
-    o = attend_decode(q, k_cache, v_cache, lengths, window=window,
-                      cap=cfg.attn_softcap, impl=impl)
+    o = attend_decode(q, k_cache, v_cache, lengths, k_scale=k_scale,
+                      v_scale=v_scale, window=window, cap=cfg.attn_softcap,
+                      impl=impl)
+    if quant:
+        return out_proj(p, o), k_cache, v_cache, k_scale, v_scale
     return out_proj(p, o), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# Block-paged KV cache layers (page-table indirection; serving/paged.py owns
+# the physical pages and their refcounts)
+# ---------------------------------------------------------------------------
+
+
+def write_kv_pages(pool, new, page_table, lengths, page_size: int):
+    """Write ``new`` (B,1,KV,hd) into the shared page pool IN PLACE at each
+    row's own logical position ``lengths[b]``, resolved through its page
+    table; returns ``pool``.
+
+    pool: (P, page_size, KV, hd). The logical page slot is clipped to
+    ``Pmax - 1`` and the offset is ``lengths[b] % page_size``, as in the
+    reference (not the dense clamp to T - 1). The serving layer's
+    copy-on-write barrier keeps two ACTIVE rows from resolving to one
+    physical slot; free rows, whose tables are all zeros, all write into
+    the reserved null page 0 (several may hit one slot in a round: which
+    write lands there is undefined, as in the reference, and no active
+    row reads page 0).
+    """
+    b = new.shape[0]
+    lengths = row_lengths(lengths, b, pool.device).long()
+    pmax = page_table.shape[1]
+    slot = torch.clamp(lengths // page_size, 0, pmax - 1)
+    pages = page_table.long().gather(1, slot[:, None])[:, 0]
+    pool[pages, lengths % page_size] = new[:, 0].to(pool.dtype)
+    return pool
+
+
+def attend_decode_paged(q, k_pages, v_pages, page_table, lengths, *,
+                        k_scale=None, v_scale=None,
+                        window: Optional[int] = None,
+                        cap: Optional[float] = None, impl: str = "xla"):
+    """Single-token decode through a paged KV cache. q: (B,1,H,hd);
+    pools: (P, ps, KV, hd); page_table: (B, Pmax) int32.
+
+    ``impl="pallas"`` reads KV through the page table inside the kernel (no
+    dense view materializes); the plain path gathers each row's logical
+    view first. ``k_scale``/``v_scale`` ((P, ps, KV, 1) fp32 scale pools,
+    both or neither) mark the pools as int8; scale pages ride the same
+    table. ``seq_shard`` raises, as in the reference.
+    """
+    if impl == "seq_shard":
+        raise ValueError(
+            "paged KV caches do not support attn_impl='seq_shard' — the "
+            "serving layer uses the dense shared cache under seq-shard "
+            "(see serving/README.md)")
+    lengths = row_lengths(lengths, q.shape[0], q.device)
+    if impl == "pallas":
+        return da_ops.paged_decode_attention(
+            q[:, 0], k_pages, v_pages, lengths, page_table,
+            k_scale=k_scale, v_scale=v_scale, window=window,
+            softcap=cap)[:, None]
+    if k_scale is not None:
+        k_pages = dequantize_kv(k_pages, k_scale)
+        v_pages = dequantize_kv(v_pages, v_scale)
+    return decode_attention_ref(q[:, 0], gather_pages(k_pages, page_table),
+                                gather_pages(v_pages, page_table), lengths,
+                                window=window, softcap=cap)[:, None]
+
+
+def attn_decode_layer_paged(cfg: ModelConfig, p, x, k_pages, v_pages,
+                            page_table, lengths, *, mixer: str,
+                            page_size: int, impl: str = "xla",
+                            k_scale=None, v_scale=None):
+    """Paged counterpart of :func:`attn_decode_layer`: project, write the
+    new k/v through each row's page table (in place), attend through the
+    same table. Returns (y, k_pages, v_pages), or with scale pools (int8)
+    the 5-tuple (y, k_pages, v_pages, k_scale, v_scale): the new token's
+    post-RoPE k/v are quantized and the scales written through the SAME
+    table, so copy-on-write copies and shared prefixes carry them."""
+    quant = k_scale is not None
+    lengths = row_lengths(lengths, x.shape[0], x.device)
+    q, k, v = _project_decode(cfg, p, x, lengths)
+    window = cfg.window if mixer == "attn_local" else None
+    if quant:
+        k, ks_new = quantize_kv(k)
+        v, vs_new = quantize_kv(v)
+        write_kv_pages(k_scale, ks_new, page_table, lengths, page_size)
+        write_kv_pages(v_scale, vs_new, page_table, lengths, page_size)
+    write_kv_pages(k_pages, k, page_table, lengths, page_size)
+    write_kv_pages(v_pages, v, page_table, lengths, page_size)
+    o = attend_decode_paged(q, k_pages, v_pages, page_table, lengths,
+                            k_scale=k_scale, v_scale=v_scale, window=window,
+                            cap=cfg.attn_softcap, impl=impl)
+    if quant:
+        return out_proj(p, o), k_pages, v_pages, k_scale, v_scale
+    return out_proj(p, o), k_pages, v_pages
+
+
+def attn_extend_layer_paged(cfg: ModelConfig, p, x, k_pages, v_pages,
+                            table_row, start: int, *, mixer: str,
+                            page_size: int, k_scale=None, v_scale=None):
+    """Chunked prefill-with-history for ONE paged row.
+
+    x: (1, L, D), the chunk at logical positions ``start .. start+L-1`` of
+    the row whose page table is ``table_row`` (Pmax,); positions < start
+    already hold valid KV (possibly SHARED prefix pages written by an
+    earlier request: reading them is what lets a warm admission skip the
+    prefix). Writes the chunk's KV (int8 pools: quantized per token, with
+    its scales) through the table in place, then attends the L queries
+    over [history ++ chunk] causally (``q_offset=start``) on the plain
+    path: the reference has no kernel here either (a gather plus
+    ``_attend_dense``). Returns (y (1,L,D), k_pages, v_pages), or the
+    5-tuple with the scale pools appended.
+    """
+    quant = k_scale is not None
+    L = x.shape[1]
+    pos = start + torch.arange(L, device=x.device)
+    q, k, v = project_qkv(cfg, p, x)
+    if cfg.pos == "rope":
+        q = apply_rope(q, pos[None], cfg.rope_theta)
+        k = apply_rope(k, pos[None], cfg.rope_theta)
+    pmax = table_row.shape[0]
+    pages = table_row.long()[torch.clamp(pos // page_size, 0, pmax - 1)]
+    offs = pos % page_size
+    if quant:
+        k, ks_new = quantize_kv(k)  # (1,L,KV,hd) int8, (1,L,KV,1) fp32
+        v, vs_new = quantize_kv(v)
+        k_scale[pages, offs] = ks_new[0]
+        v_scale[pages, offs] = vs_new[0]
+    k_pages[pages, offs] = k[0].to(k_pages.dtype)
+    v_pages[pages, offs] = v[0].to(v_pages.dtype)
+    kr = gather_pages(k_pages, table_row[None])  # (1, Pmax*ps, KV, hd)
+    vr = gather_pages(v_pages, table_row[None])
+    if quant:  # gathered rows dequantized: the same values as the
+        # reference's dequantize-then-gather
+        kr = dequantize_kv(kr, gather_pages(k_scale, table_row[None]))
+        vr = dequantize_kv(vr, gather_pages(v_scale, table_row[None]))
+    window = cfg.window if mixer == "attn_local" else None
+    o = _attend_dense(q, kr.to(q.dtype), vr.to(q.dtype), mask_kind="causal",
+                      window=window, cap=cfg.attn_softcap, q_offset=start)
+    if quant:
+        return out_proj(p, o), k_pages, v_pages, k_scale, v_scale
+    return out_proj(p, o), k_pages, v_pages

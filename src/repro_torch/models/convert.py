@@ -7,7 +7,8 @@ keeps one tree per layer. ``from_reference`` takes the reference tree as
 numpy arrays, unstacks the blocks, and casts each leaf to the port's
 declared dtype (bf16 weights, fp32 norms). It raises on any missing or
 extra leaf and on any shape that disagrees. ``cache_from_reference`` does
-the same for a decode cache, so a test can hand both sides one cache.
+the same for a decode cache (bf16 or int8) and ``paged_cache_from_reference``
+for a paged one, so a test can hand both sides one cache.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import ModelConfig, is_axspec
-from repro_torch.models.transformer import Cache, lm_specs
+from repro_torch.models.transformer import Cache, PagedCache, lm_specs
 from repro_torch.tree import tree_leaves_with_path, tree_map_with_path
 
 
@@ -61,29 +62,62 @@ def from_reference(params_np, cfg: ModelConfig, device="cuda"):
     return out
 
 
+_LEAF_DTYPES = {"k": None, "v": None, "k_scale": torch.float32,
+                "v_scale": torch.float32}
+
+
+def _cache_layers(ref_layers, cfg: ModelConfig, device, layout: str):
+    """Unstack the reference's per-pattern-position cache leaves (G, ...)
+    into one dict per layer. bf16 layers hold ``k``/``v``; int8 layers hold
+    int8 ``k``/``v`` and fp32 ``k_scale``/``v_scale``."""
+    layers = []
+    for layer in range(cfg.n_layers):
+        ref = ref_layers[layer % cfg.period]
+        names = set(ref)
+        if names not in ({"k", "v"}, set(_LEAF_DTYPES)):
+            raise KeyError(f"want cache leaves k and v (bf16) or k, v, "
+                           f"k_scale and v_scale (int8), got {sorted(ref)}")
+        quant = "k_scale" in names
+        kv_dtype = torch.int8 if quant else torch.bfloat16
+        want = (cfg.n_groups,) + tuple(np.shape(ref["k"]))[1:]
+        for name in sorted(names):
+            shape = tuple(np.shape(ref[name]))
+            expect = want if name in ("k", "v") else want[:-1] + (1,)
+            if shape != expect or len(want) != 5:
+                raise ValueError(f"cache leaf {name}: shape {shape}, want "
+                                 f"(G={cfg.n_groups}, {layout})")
+        group = layer // cfg.period
+        layers.append({name: _to_tensor(np.asarray(ref[name])[group],
+                                        _LEAF_DTYPES[name] or kv_dtype,
+                                        device)
+                       for name in ("k", "v", "k_scale", "v_scale")
+                       if name in names})
+    return tuple(layers)
+
+
 def cache_from_reference(cache_np, cfg: ModelConfig, device="cuda") -> Cache:
     """Reference dense decode cache -> the port's ``Cache`` on ``device``.
 
     ``cache_np`` has the reference ``Cache``'s fields with numpy leaves:
-    ``layers`` (one ``{"k", "v"}`` dict per pattern position, leaves
-    stacked (G, B, T, KV, hd)) and ``lengths`` (B,). Layer ``l`` of the
-    port is group ``l // period`` of pattern position ``l % period``.
+    ``layers`` (one dict per pattern position, ``{"k", "v"}`` leaves
+    stacked (G, B, T, KV, hd), plus ``k_scale``/``v_scale``
+    (G, B, T, KV, 1) beside int8 k/v) and ``lengths`` (B,). Layer ``l`` of
+    the port is group ``l // period`` of pattern position ``l % period``.
     """
-    layers = []
-    for layer in range(cfg.n_layers):
-        ref = cache_np.layers[layer % cfg.period]
-        if set(ref) != {"k", "v"}:
-            raise KeyError(f"want a bf16 dense cache with k and v leaves, "
-                           f"got {sorted(ref)}")
-        want = (cfg.n_groups,) + tuple(np.shape(ref["k"]))[1:]
-        for name in ("k", "v"):
-            shape = tuple(np.shape(ref[name]))
-            if shape != want or len(want) != 5:
-                raise ValueError(f"cache leaf {name}: shape {shape}, want "
-                                 f"(G={cfg.n_groups}, B, T, KV, hd)")
-        group = layer // cfg.period
-        layers.append({name: _to_tensor(np.asarray(ref[name])[group],
-                                        torch.bfloat16, device)
-                       for name in ("k", "v")})
-    return Cache(layers=tuple(layers),
+    return Cache(layers=_cache_layers(cache_np.layers, cfg, device,
+                                      "B, T, KV, hd"),
                  lengths=_to_tensor(cache_np.lengths, torch.int32, device))
+
+
+def paged_cache_from_reference(cache_np, cfg: ModelConfig,
+                               device="cuda") -> PagedCache:
+    """Reference ``PagedCache`` -> the port's on ``device``: pools stacked
+    (G, P, ps, KV, hd) (and (G, P, ps, KV, 1) int8 scale pools) become one
+    (P, ps, KV, hd) pool per layer; ``page_table`` (B, Pmax), ``lengths``
+    and ``page_size`` carry over."""
+    return PagedCache(
+        layers=_cache_layers(cache_np.layers, cfg, device,
+                             "P, ps, KV, hd"),
+        page_table=_to_tensor(cache_np.page_table, torch.int32, device),
+        lengths=_to_tensor(cache_np.lengths, torch.int32, device),
+        page_size=int(cache_np.page_size))

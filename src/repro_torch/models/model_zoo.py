@@ -47,9 +47,10 @@ class Model:
                                    max_len=max_len)
 
     def decode_step(self, run: RunConfig, params, cache, batch):
-        """One RAGGED decode step: row b embeds/writes/attends at its own
-        ``cache.lengths[b]`` and every row's length advances by 1; the
-        cache is updated in place and returned."""
+        """One RAGGED decode step on a dense or paged cache: row b
+        embeds/writes/attends at its own ``cache.lengths[b]`` and every
+        row's length advances by 1; the cache is updated in place and
+        returned."""
         return transformer.decode_step(self.cfg, run, params, cache,
                                        token=batch.get("token"),
                                        embedding=batch.get("embedding"))
@@ -63,6 +64,29 @@ class Model:
                    device="cuda"):
         return transformer.init_cache(self.cfg, batch, max_len, kv_dtype,
                                       device=device)
+
+    def paged_cache_specs(self, batch: int, n_pages: int, page_size: int,
+                          max_pages: int, kv_dtype: str = "bf16"):
+        """Block-paged cache on the meta device (decoder-only,
+        attention-only patterns; raises ValueError otherwise: those stay
+        on the dense cache)."""
+        return transformer.paged_cache_specs(self.cfg, batch, n_pages,
+                                             page_size, max_pages, kv_dtype)
+
+    def init_paged_cache(self, batch: int, n_pages: int, page_size: int,
+                         max_pages: int, kv_dtype: str = "bf16",
+                         device="cuda"):
+        return transformer.init_paged_cache(self.cfg, batch, n_pages,
+                                            page_size, max_pages, kv_dtype,
+                                            device=device)
+
+    def extend_row(self, run: RunConfig, params, cache, row: int, tokens):
+        """Chunked prefill-with-history of one paged row (cold admission at
+        start 0 or warm continuation past a shared prefix), one call
+        either way. Returns (last-token logits (1,V), cache), written in
+        place."""
+        return transformer.extend_paged(self.cfg, run, params, cache, row,
+                                        tokens)
 
 
 def _active_params(cfg: ModelConfig, specs) -> int:

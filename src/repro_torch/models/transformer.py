@@ -1,24 +1,27 @@
 """Transformer over a block pattern: full-sequence, prefill and decode.
 
-Counterpart of ``repro.models.transformer`` for dense caches. The
-reference stacks each pattern position's parameters along a leading
-"layers" axis and scans over layer groups; here ``params["blocks"]`` is a
-tuple of ``n_layers`` per-layer trees (layer ``l`` runs pattern position
-``l % period``) and the layers run in a Python loop. The decode cache
-follows the params: ``Cache.layers`` is a tuple of per-layer
-``{"k", "v"}`` dicts of (B, T, KV, hd) where the reference stacks
-(G, B, T, KV, hd) per pattern position.
+Counterpart of ``repro.models.transformer``. The reference stacks each
+pattern position's parameters along a leading "layers" axis and scans
+over layer groups; here ``params["blocks"]`` is a tuple of ``n_layers``
+per-layer trees (layer ``l`` runs pattern position ``l % period``) and
+the layers run in a Python loop. The decode caches follow the params:
+``Cache.layers`` is a tuple of per-layer ``{"k", "v"}`` dicts of
+(B, T, KV, hd), plus fp32 ``k_scale``/``v_scale`` (B, T, KV, 1) beside
+int8 k/v; ``PagedCache.layers`` holds per-layer pools (P, ps, KV, hd)
+(and (P, ps, KV, 1) scale pools) where the reference stacks (G, ...) per
+pattern position.
 
 Entry points:
   * forward      — full-sequence logits (training / eval / classify)
   * prefill      — full-sequence pass that also builds the decode cache
-  * decode_step  — one token per row in, logits out; the cache is
-                   updated IN PLACE (the reference donates it)
+  * decode_step  — one token per row in, logits out, on a dense or paged
+                   cache; the cache is updated IN PLACE (the reference
+                   donates it)
+  * extend_paged — chunked prefill-with-history of one paged row, in place
 
-Ported so far: attention mixers ("attn", "attn_local") with dense MLPs
-and bf16 dense caches. SSM mixers, MoE MLPs and sandwich norms raise
-``NotImplementedError`` (Queue 1 #7), as do int8 and paged caches
-(Queue 1 #5).
+Ported so far: attention mixers ("attn", "attn_local") with dense MLPs,
+and bf16 or int8 KV in dense or paged caches. SSM mixers, MoE MLPs and
+sandwich norms raise ``NotImplementedError`` (Queue 1 #7).
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.decode_attention.quant import (KV_DTYPES,
+                                                        quantize_kv)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models.common import (AxSpec, LayerSpec, ModelConfig,
@@ -36,7 +41,6 @@ from repro_torch.models.common import (AxSpec, LayerSpec, ModelConfig,
                                        softcap)
 
 _QUEUE = "ROADMAP.md Queue 1 #7 (remaining model families)"
-_KV_QUEUE = "ROADMAP.md Queue 1 #5 (int8 and paged KV caches)"
 
 
 def _check_ported(cfg: ModelConfig, spec: LayerSpec):
@@ -193,17 +197,31 @@ class Cache:
 
 
 def _check_kv_dtype(kv_dtype: str):
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype={kv_dtype!r} not in {KV_DTYPES}")
+
+
+def _kv_layer(shape, kv_dtype: str, device) -> dict:
+    """One attention layer's zeroed KV leaves: bf16 k/v, or int8 k/v with
+    fp32 (..., 1) scales beside them."""
     if kv_dtype == "int8":
-        raise NotImplementedError(f"int8 KV caches are not ported yet "
-                                  f"({_KV_QUEUE})")
-    if kv_dtype != "bf16":
-        raise ValueError(f"kv_dtype={kv_dtype!r} not in ('bf16', 'int8')")
+        scale = shape[:-1] + (1,)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(scale, dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(scale, dtype=torch.float32,
+                                       device=device)}
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
                 kv_dtype: str = "bf16") -> Cache:
     """The cache's shapes and dtypes, on the meta device (allocates
-    nothing): the counterpart of the reference's ShapeDtypeStruct tree."""
+    nothing): the counterpart of the reference's ShapeDtypeStruct tree.
+    ``kv_dtype="int8"`` stores int8 k/v and per-token fp32
+    ``k_scale``/``v_scale`` of shape (B, max_len, KV, 1)."""
     return init_cache(cfg, batch, max_len, kv_dtype, device="meta")
 
 
@@ -214,14 +232,77 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     for spec in cfg.pattern:
         _check_ported(cfg, spec)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-
-    def zeros():
-        return torch.zeros(shape, dtype=torch.bfloat16, device=device)
-
-    return Cache(layers=tuple({"k": zeros(), "v": zeros()}
+    return Cache(layers=tuple(_kv_layer(shape, kv_dtype, device)
                               for _ in range(cfg.n_layers)),
                  lengths=torch.zeros(batch, dtype=torch.int32,
                                      device=device))
+
+
+@dataclasses.dataclass
+class PagedCache:
+    """Block-paged decode cache: shared physical page pools + per-row page
+    tables.
+
+    KV leaves are (n_pages, page_size, KV, hd) per layer: a POOL of
+    physical pages with no batch dim. ``page_table`` (B, max_pages) int32
+    maps row b's logical page i to a physical page, so rows only hold the
+    pages they use and rows sharing a prompt prefix can map their leading
+    logical pages to ONE physical copy (``serving.paged.PageAllocator``
+    owns the mapping and the refcounts).
+
+    Physical page 0 is the reserved NULL page: it is never allocated, and
+    a freed row's table is all zeros, so its inert per-round decode writes
+    land in page 0 instead of a page another row now owns.
+
+    ``page_size`` takes part in the engine's shape key, as it rides in the
+    reference's treedef.
+    """
+
+    layers: tuple            # per layer: {"k", "v"[, "k_scale", "v_scale"]}
+    page_table: torch.Tensor  # (B, max_pages) int32
+    lengths: torch.Tensor    # (B,) int32
+    page_size: int = 16
+
+    def tensors(self):
+        """Every tensor of the cache: each layer's pools, then the page
+        table and lengths."""
+        return [t for layer in self.layers for t in layer.values()] + [
+            self.page_table, self.lengths]
+
+
+def paged_cache_specs(cfg: ModelConfig, batch: int, n_pages: int,
+                      page_size: int, max_pages: int,
+                      kv_dtype: str = "bf16") -> PagedCache:
+    """The PagedCache's shapes and dtypes on the meta device. ``n_pages``
+    physical pages per layer pool (page 0 reserved as null); each row
+    addresses up to ``max_pages`` logical pages (max_pages * page_size =
+    the row's max_len). ``kv_dtype="int8"`` adds fp32 scale pools
+    (n_pages, page_size, KV, 1) that page exactly like the data. Only
+    attention-only patterns page, as in the reference."""
+    return init_paged_cache(cfg, batch, n_pages, page_size, max_pages,
+                            kv_dtype, device="meta")
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
+                     page_size: int, max_pages: int,
+                     kv_dtype: str = "bf16", device="cuda") -> PagedCache:
+    """An empty paged cache on ``device``: zeroed pools, all-null page
+    tables, all lengths 0."""
+    for spec in cfg.pattern:
+        if not spec.mixer.startswith("attn"):
+            raise ValueError(
+                f"paged KV caches require an attention-only pattern; mixer "
+                f"{spec.mixer!r} has no paged layout (use the dense cache)")
+        _check_ported(cfg, spec)
+    _check_kv_dtype(kv_dtype)
+    shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    return PagedCache(
+        layers=tuple(_kv_layer(shape, kv_dtype, device)
+                     for _ in range(cfg.n_layers)),
+        page_table=torch.zeros((batch, max_pages), dtype=torch.int32,
+                               device=device),
+        lengths=torch.zeros(batch, dtype=torch.int32, device=device),
+        page_size=page_size)
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +313,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def prefill(cfg: ModelConfig, run: RunConfig, params, *, tokens=None,
             embeddings=None, max_len: Optional[int] = None):
     """Returns (last-token logits (B,V), populated Cache of capacity
-    ``max_len``, default the prompt length + ``run.cache_pad``)."""
+    ``max_len``, default the prompt length + ``run.cache_pad``). With
+    ``run.kv_dtype="int8"`` the cache holds each layer's k/v quantized
+    per token (int8 values, fp32 scales)."""
     _check_kv_dtype(run.kv_dtype)
     ref = tokens if tokens is not None else embeddings
     b, s = ref.shape[0], ref.shape[1]
@@ -249,8 +332,15 @@ def prefill(cfg: ModelConfig, run: RunConfig, params, *, tokens=None,
             cfg, run, cfg.pattern[layer % cfg.period], p, x, positions,
             prefill=True)
         pad = (0, 0, 0, 0, 0, max_len - s)  # zeros past the prompt
-        layers.append({"k": F.pad(k.to(torch.bfloat16), pad),
-                       "v": F.pad(v.to(torch.bfloat16), pad)})
+        if run.kv_dtype == "int8":
+            kq, ks = quantize_kv(k)
+            vq, vs = quantize_kv(v)
+            layers.append({"k": F.pad(kq, pad), "v": F.pad(vq, pad),
+                           "k_scale": F.pad(ks, pad),
+                           "v_scale": F.pad(vs, pad)})
+        else:
+            layers.append({"k": F.pad(k.to(torch.bfloat16), pad),
+                           "v": F.pad(v.to(torch.bfloat16), pad)})
     x_last = apply_norm(cfg, params["final_norm"], x[:, -1])
     logits = _lm_head(cfg, params, x_last)
     return logits, Cache(layers=tuple(layers),
@@ -263,32 +353,78 @@ def prefill(cfg: ModelConfig, run: RunConfig, params, *, tokens=None,
 # ---------------------------------------------------------------------------
 
 
-def decode_step(cfg: ModelConfig, run: RunConfig, params, cache: Cache,
+def decode_step(cfg: ModelConfig, run: RunConfig, params, cache,
                 token=None, embedding=None):
-    """One decode step. token: (B,1) int (or embedding (B,1,D)).
+    """One decode step on a ``Cache`` or a ``PagedCache``. token: (B,1)
+    int (or embedding (B,1,D)).
 
-    Returns (logits (B,V), ``cache``) with the new k/v written and every
-    row's length advanced by 1, IN PLACE. The batch is RAGGED: row b
-    embeds, writes and attends at its own position ``cache.lengths[b]``,
-    so one call serves continuous-batching slots at different depths.
-    Free rows advance too (the reference does the same); once a row's
-    length passes the cache's end its write lands on the last position
-    (``attention.write_kv_rows``) and it attends every position, as in
-    the reference, and the serving layer discards its token.
+    Returns (logits (B,V), ``cache``) with the new k/v (and int8 scales)
+    written and every row's length advanced by 1, IN PLACE. The batch is
+    RAGGED: row b embeds, writes and attends at its own position
+    ``cache.lengths[b]``, so one call serves continuous-batching slots at
+    different depths. Free rows advance too (the reference does the
+    same). On a dense cache, once a row's length passes the cache's end
+    its write lands on the last position (``attention.write_kv_rows``)
+    and it attends every position; on a paged cache a free row's zeroed
+    table routes its write to the null page 0. The serving layer discards
+    free rows' tokens.
     """
     _check_kv_dtype(run.kv_dtype)
+    paged = isinstance(cache, PagedCache)
     lengths = cache.lengths
     pos = lengths[:, None].long()  # (B,1): per-row positions
     x = _embed_in(cfg, params, token, embedding, pos)
     for layer, p in enumerate(params["blocks"]):
         spec = cfg.pattern[layer % cfg.period]
         c = cache.layers[layer]
+        scales = dict(k_scale=c.get("k_scale"), v_scale=c.get("v_scale"))
         h = apply_norm(cfg, p["norm1"], x)
-        h, _, _ = attn_lib.attn_decode_layer(
-            cfg, p["attn"], h, c["k"], c["v"], lengths, mixer=spec.mixer,
-            impl=run.attn_impl)
+        if paged:
+            h = attn_lib.attn_decode_layer_paged(
+                cfg, p["attn"], h, c["k"], c["v"], cache.page_table,
+                lengths, mixer=spec.mixer, page_size=cache.page_size,
+                impl=run.attn_impl, **scales)[0]
+        else:
+            h = attn_lib.attn_decode_layer(
+                cfg, p["attn"], h, c["k"], c["v"], lengths,
+                mixer=spec.mixer, impl=run.attn_impl, **scales)[0]
         x = _mlp_residual(cfg, spec, p, x + h)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = _lm_head(cfg, params, x[:, 0])
     cache.lengths.add_(1)
+    return logits, cache
+
+
+def extend_paged(cfg: ModelConfig, run: RunConfig, params, cache: PagedCache,
+                 row: int, tokens):
+    """Chunked prefill-with-history for ONE row of a PagedCache.
+
+    tokens: (1, L) occupying logical positions ``start .. start+L-1``,
+    where ``start = cache.lengths[row]``. The single admission primitive
+    of the paged serving path, whether the row is cold (start 0, the full
+    prompt) or warm (start = the shared-prefix length, the divergent
+    suffix): the chunk's queries attend causally over [history ++ chunk],
+    so a warm admission reads the shared prefix pages instead of
+    recomputing them. The row's pages must already be installed. Writes
+    the pools in place and sets ``lengths[row] = start + L``; returns
+    (last-token logits (1, V), ``cache``).
+    """
+    _check_kv_dtype(run.kv_dtype)
+    L = tokens.shape[1]
+    start = int(cache.lengths[row])
+    table_row = cache.page_table[row]
+    positions = start + torch.arange(L, device=tokens.device)[None]
+    x = _embed_in(cfg, params, tokens, None, positions)
+    for layer, p in enumerate(params["blocks"]):
+        spec = cfg.pattern[layer % cfg.period]
+        c = cache.layers[layer]
+        h = apply_norm(cfg, p["norm1"], x)
+        h = attn_lib.attn_extend_layer_paged(
+            cfg, p["attn"], h, c["k"], c["v"], table_row, start,
+            mixer=spec.mixer, page_size=cache.page_size,
+            k_scale=c.get("k_scale"), v_scale=c.get("v_scale"))[0]
+        x = _mlp_residual(cfg, spec, p, x + h)
+    x = apply_norm(cfg, params["final_norm"], x[:, -1])
+    logits = _lm_head(cfg, params, x)
+    cache.lengths[row] = start + L
     return logits, cache

@@ -19,7 +19,9 @@ Three layers:
     decode call per active slot per round), the baseline the batched
     mode is measured against.
 
-The paged cache (``paged=True``) is not ported yet (ROADMAP Queue 1 #5).
+``paged=True`` keeps the batched mode's one decode call a round over a
+block-paged cache: a ``PageAllocator`` maps rows onto one physical pool
+with prefix sharing and copy-on-write.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.paged import PageAllocator, PagesExhausted
 from repro_torch.serving.sampler import sample
 
 # Where a scheduling round's wall time goes (the reference's names).
@@ -145,6 +148,21 @@ class ContinuousBatcher:
     ``batched=False``: per-slot mode — each slot owns a batch-1 cache and
     every active slot costs one greedy decode call per round.
 
+    ``paged=True`` (batched mode only: with ``batched=False`` it falls back
+    to the dense cache, as the reference does): slots are rows of a
+    block-PAGED cache of ``page_size``-token pages. A
+    ``serving.paged.PageAllocator`` maps each row's logical pages onto a
+    shared pool of ``n_pages`` physical pages (default: the worst case,
+    every slot at full capacity, plus the null page), admission is
+    ``assign_row_pages`` + ``extend_row`` (one call, cold or warm: a
+    prompt sharing a registered prefix maps its leading pages to the
+    existing physical copy and only computes the suffix), each round runs
+    the allocator's copy-on-write barrier and then the same single ragged
+    decode call, and completion returns the row's pages. A request the
+    pool cannot hold now is requeued at the front (pages free as rows
+    complete); one it can never hold is rejected. ``kv_dtype="int8"``
+    engines page int8 pools with their scale pools.
+
     Counters: ``decode_dispatches`` = decode calls (1 per round batched),
     ``decode_steps`` = slot-steps of decode work (equal between modes for
     the same workload), ``sampler_dispatches`` = host-sampler steps (0
@@ -163,7 +181,9 @@ class ContinuousBatcher:
     n_slots: int = 4
     max_len: Optional[int] = None
     batched: bool = True
-    paged: bool = False             # not ported yet: raises
+    paged: bool = False             # block-paged cache (batched mode)
+    page_size: int = 16
+    n_pages: Optional[int] = None   # physical pool size; default worst case
     on_token: Optional[Any] = None  # callback(req, token, prefill) per commit
     fused_sampling: bool = False    # draw tokens inside the decode call
     temperature: float = 0.0        # 0 = greedy
@@ -172,9 +192,6 @@ class ContinuousBatcher:
     seed: int = 0                   # noise stream for temperature sampling
 
     def __post_init__(self):
-        if self.paged:
-            raise NotImplementedError(
-                "paged KV caches are not ported yet (ROADMAP.md Queue 1 #5)")
         if self.fused_sampling and not self.batched:
             raise ValueError(
                 "fused_sampling requires batched=True — the per-slot path "
@@ -193,6 +210,10 @@ class ContinuousBatcher:
         self._bucket_s = {b: 0.0 for b in BUCKETS}
         self._gen: Optional[torch.Generator] = None
         self.rejected: List[Request] = []
+        if self.paged and not self.batched:
+            self.paged = False  # the per-slot path keeps its dense caches
+        self.allocator: Optional[PageAllocator] = None
+        self._host_len: Dict[int, int] = {}   # paged: row -> current length
 
     def submit(self, req: Request):
         self.scheduler.submit(req)
@@ -263,7 +284,9 @@ class ContinuousBatcher:
         t0 = time.perf_counter()
         attributed0 = sum(self._bucket_s.values())
         admitted = self.scheduler.admit()
-        if self.batched:
+        if self.paged:
+            self._step_paged(admitted)
+        elif self.batched:
             self._step_batched(admitted)
         else:
             self._step_per_slot(admitted)
@@ -308,6 +331,13 @@ class ContinuousBatcher:
             self._commit_batched(slot, tok, prefill=True)
         if not self.scheduler.active:
             return
+        toks = self._decode_round()
+        for slot in list(self.scheduler.active):
+            self._commit_batched(slot, int(toks[slot]))
+
+    def _decode_round(self) -> np.ndarray:
+        """The round's ONE decode call over every slot (free rows ride
+        along, masked by their lengths); returns the (n_slots,) tokens."""
         t_dec = time.perf_counter()
         if self.fused_sampling:
             toks, self.cache = self.engine.decode_sample(
@@ -325,13 +355,95 @@ class ContinuousBatcher:
         self.decode_dispatches += 1
         self.decode_steps += len(self.scheduler.active)
         self._tokens[:, 0] = toks
-        for slot in list(self.scheduler.active):
-            self._commit_batched(slot, int(toks[slot]))
+        return toks
 
     def _commit_batched(self, slot: int, tok: int, prefill: bool = False):
         req = self.scheduler.slots[slot]
         self.scheduler.step_done(slot, tok)
         if self.scheduler.slots[slot] is None:  # completed -> free the row
+            self.cache = self.engine.free_row(self.cache, slot)
+        self._fire_on_token(req, tok, prefill)
+
+    # -- paged: shared physical pool, prefix sharing, COW, 1 call --------
+
+    def _init_paged(self):
+        if self.max_len is None:
+            known = [r for r in self.scheduler.slots
+                     if r is not None] + self.scheduler.queue
+            self.max_len = max(
+                len(r.prompt) for r in known) + self.engine.run.cache_pad
+        max_pages = -(-self.max_len // self.page_size)
+        self.max_len = max_pages * self.page_size  # whole pages
+        if self.n_pages is None:
+            # worst case (every slot at full capacity) plus null page 0; a
+            # smaller pool serves more slots at equal KV bytes, since rows
+            # only hold the pages they use
+            self.n_pages = 1 + self.n_slots * max_pages
+        self.allocator = PageAllocator(self.n_pages, self.page_size,
+                                       max_pages)
+        self.cache = self.engine.new_paged_cache(
+            self.n_slots, self.n_pages, self.page_size, max_pages)
+
+    def _step_paged(self, admitted: List[int]):
+        for slot in admitted:
+            req = self.scheduler.slots[slot]
+            if self.cache is None:
+                self._init_paged()
+            need = len(req.prompt) + req.max_new_tokens
+            if need > self.max_len:
+                self._reject(slot)   # can never fit a row
+                continue
+            try:
+                plan = self.allocator.admit(slot, req.prompt,
+                                            req.max_new_tokens)
+            except PagesExhausted:
+                if self.allocator.rows and \
+                        -(-need // self.page_size) <= self.n_pages - 1:
+                    # transient: active rows return pages as they complete
+                    self.scheduler.slots[slot] = None
+                    self.scheduler.queue.insert(0, req)
+                else:
+                    self._reject(slot)  # no active row will ever free one
+                continue
+            t_pf = time.perf_counter()
+            self.cache = self.engine.assign_row_pages(
+                self.cache, slot, plan.pages, plan.start_len)
+            if self.fused_sampling:
+                toks, self.cache = self.engine.extend_row_sample(
+                    self.params, self.cache, slot, plan.suffix[None],
+                    self._generator(), **self._fused_kw())
+                tok = int(toks[0])
+                self._bucket_s["prefill"] += time.perf_counter() - t_pf
+            else:
+                logits, self.cache = self.engine.extend_row(
+                    self.params, self.cache, slot, plan.suffix[None])
+                self._bucket_s["prefill"] += time.perf_counter() - t_pf
+                tok = int(self._sample_host(logits)[0])
+            self._host_len[slot] = len(req.prompt)
+            self._tokens[slot, 0] = tok
+            self._commit_paged(slot, tok, prefill=True)
+        if not self.scheduler.active:
+            return
+        for slot in list(self.scheduler.active):
+            # copy-on-write barrier: the page this row writes this round
+            # must be exclusively owned (only forked rows ever trip it)
+            cow = self.allocator.writable_page(slot, self._host_len[slot])
+            if cow is not None:
+                self.cache = self.engine.cow_copy_page(self.cache, *cow)
+                self.cache = self.engine.assign_row_pages(
+                    self.cache, slot, self.allocator.rows[slot],
+                    self._host_len[slot])
+        toks = self._decode_round()
+        for slot in list(self.scheduler.active):
+            self._host_len[slot] += 1
+            self._commit_paged(slot, int(toks[slot]))
+
+    def _commit_paged(self, slot: int, tok: int, prefill: bool = False):
+        req = self.scheduler.slots[slot]
+        self.scheduler.step_done(slot, tok)
+        if self.scheduler.slots[slot] is None:  # completed -> free pages
+            self.allocator.free(slot)
+            self._host_len.pop(slot, None)
             self.cache = self.engine.free_row(self.cache, slot)
         self._fire_on_token(req, tok, prefill)
 
@@ -374,8 +486,8 @@ class ContinuousBatcher:
 
     def cancel(self, req: Request) -> bool:
         """Evict ``req`` by IDENTITY: drop it from the queue, or free its
-        slot and cache row. Called between rounds. Returns True when
-        found."""
+        slot and cache row (and, paged, its pages). Called between rounds.
+        Returns True when found."""
         for i, q in enumerate(self.scheduler.queue):
             if q is req:
                 del self.scheduler.queue[i]
@@ -384,7 +496,13 @@ class ContinuousBatcher:
             if q is not req:
                 continue
             self.scheduler.slots[slot] = None
-            if self.batched:
+            if self.paged:
+                if self.allocator is not None:
+                    self.allocator.free(slot)
+                self._host_len.pop(slot, None)
+                if self.cache is not None:
+                    self.cache = self.engine.free_row(self.cache, slot)
+            elif self.batched:
                 if self.cache is not None:
                     self.cache = self.engine.free_row(self.cache, slot)
             else:

@@ -9,8 +9,13 @@ The shared-batched-cache admission path (``new_cache`` -> ``prefill_into``
 -> ``decode`` -> ``free_row``) serves continuous batching: one
 (n_slots, max_len, ...) cache whose per-row ``lengths`` make the decode
 batch ragged, so one decode call serves every slot at its own depth. The
-reference donates the cache to each of these calls; here they write the
-caller's cache IN PLACE and return it, so no round copies it.
+block-paged path (``new_paged_cache`` -> ``assign_row_pages`` ->
+``extend_row`` -> ``decode`` -> ``free_row``, with ``cow_copy_page`` and
+``fork_row``) is its device half beside ``serving.paged.PageAllocator``.
+``RunConfig(kv_dtype="int8")`` stores K/V as int8 with per-token fp32
+scales in either layout. The reference donates the cache to each of these
+calls; here they write the caller's cache (its KV tensors or pools, page
+table and lengths) IN PLACE and return it, so no round copies it.
 
 Shape-bucket contract, as in the reference: every entry point routes
 through one cache keyed by (kind, input shape bucket), with the
@@ -28,9 +33,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.decode_attention.fused_sampling import fused_sample
+from repro_torch.kernels.decode_attention.quant import KV_DTYPES
 from repro_torch.models.common import RunConfig
 from repro_torch.models.model_zoo import Model
-from repro_torch.models.transformer import Cache
+from repro_torch.models.transformer import Cache, PagedCache
 from repro_torch.serving.sampler import sample
 from repro_torch.tree import tree_map
 
@@ -44,10 +50,17 @@ def _leaf_key(x) -> tuple:
 
 def _shape_key(tree) -> tuple:
     """Hashable shape/dtype bucket of an input: an array or tensor, a dict
-    of them, or a decode ``Cache`` (whose type takes part in the key, as
-    the reference's treedef does)."""
-    if isinstance(tree, Cache):
-        return ("Cache",) + tuple(_leaf_key(t) for t in tree.tensors())
+    of them, or a decode ``Cache`` or ``PagedCache``. The cache's type, its
+    leaf names (int8 layers carry scales) and a paged cache's
+    ``page_size`` take part in the key, as the reference's treedef does:
+    a dense and a paged cache never share a bucket, even where their leaf
+    shapes coincide."""
+    if isinstance(tree, (Cache, PagedCache)):
+        head = (("PagedCache", tree.page_size)
+                if isinstance(tree, PagedCache) else ("Cache",))
+        names = tuple(tuple(layer) for layer in tree.layers)
+        return head + (names,) + tuple(_leaf_key(t)
+                                       for t in tree.tensors())
     if isinstance(tree, dict):
         return tuple((k, _shape_key(v)) for k, v in sorted(tree.items()))
     return _leaf_key(tree)
@@ -70,8 +83,10 @@ class Engine:
       model: ``models.build(cfg)`` facade.
       run: runtime knobs; ``run.attn_impl="pallas"`` runs attention
         through the hand-written CUDA kernels on a CUDA device (CPU
-        tensors take their plain versions). ``kv_dtype="int8"`` is not
-        ported yet (ROADMAP Queue 1 #5).
+        tensors take their plain versions). ``run.kv_dtype="int8"``
+        stores every cache the engine allocates as int8 K/V with
+        per-token fp32 scales (decoder-only models; there is no mesh yet,
+        so the reference's under-a-mesh guard has no counterpart).
       device: where params, caches and activations live (``"cuda"``
         unless the caller asks for the CPU).
     """
@@ -81,12 +96,13 @@ class Engine:
     device: Any = "cuda"
 
     def __post_init__(self):
-        if self.run.kv_dtype == "int8":
-            raise NotImplementedError(
-                "kv_dtype='int8' is not ported yet (ROADMAP.md Queue 1 #5)")
-        if self.run.kv_dtype != "bf16":
-            raise ValueError(f"kv_dtype={self.run.kv_dtype!r} not in "
-                             f"('bf16', 'int8')")
+        if self.run.kv_dtype not in KV_DTYPES:
+            raise ValueError(
+                f"kv_dtype={self.run.kv_dtype!r} not in {KV_DTYPES}")
+        if self.run.kv_dtype == "int8" and self.model.cfg.encdec:
+            raise ValueError(
+                "encoder-decoder models have no int8 KV layout "
+                "(cross-attn caches stay bf16)")
         self.device = torch.device(self.device)
         self._exec: Dict[Any, Any] = {}
         self.compile_count = 0
@@ -201,9 +217,9 @@ class Engine:
         with torch.no_grad():
             return fn(params, batch)
 
-    def decode(self, params, cache: Cache, token
-               ) -> Tuple[torch.Tensor, Cache]:
-        """One decode step, (B, 1) tokens -> ((B, V) logits, cache). The
+    def decode(self, params, cache, token) -> Tuple[torch.Tensor, Any]:
+        """One decode step, (B, 1) tokens -> ((B, V) logits, cache), on a
+        dense ``Cache`` or a ``PagedCache`` (each its own bucket). The
         batch is RAGGED (each row at its own ``cache.lengths[b]``) and the
         cache is updated in place."""
         token = self._tokens_in(token)
@@ -266,27 +282,147 @@ class Engine:
     def _free_fn(self):
         def _free(cache, row):
             cache.lengths[row] = 0
+            if isinstance(cache, PagedCache):
+                # paged eviction also nulls the row's page table, so its
+                # inert per-round decode writes land in the reserved null
+                # page 0, never in a page another row now owns
+                cache.page_table[row] = 0
             return cache
         return _free
 
-    def free_row(self, cache: Cache, row: int) -> Cache:
+    def free_row(self, cache, row: int):
         """Evict row ``row``: reset its length to 0 (the per-row masks make
         a zero-length row inert; its stale KV is overwritten by the next
-        :meth:`prefill_into`). In place; returns the cache."""
+        admission) and, on a ``PagedCache``, zero its page table. In
+        place; returns the cache."""
         fn = self._get_exec("free_row", _shape_key(cache), self._free_fn)
         return fn(cache, int(row))
+
+    # ------------------------------------------------------------------
+    # Block-paged shared cache (page-table indirection + prefix sharing)
+    # ------------------------------------------------------------------
+    # Device half of the paged serving path; the host half (which row
+    # owns which physical page, refcounts, prefix matching, the
+    # copy-on-write barrier) is ``serving.paged.PageAllocator``. The
+    # lifecycle the batcher drives: new_paged_cache -> (admit ->
+    # assign_row_pages -> extend_row) per row -> decode (the same ragged
+    # entry point: a PagedCache routes to the paged kernel) -> free_row.
+    # Every call writes the pools, page table and lengths in place.
+
+    def new_paged_cache(self, batch: int, n_pages: int, page_size: int,
+                        max_pages: int) -> PagedCache:
+        """Allocate an EMPTY paged cache on the engine's device: zeroed
+        page pools (page 0 = reserved null page), all-null page tables,
+        all lengths 0; int8 pools with scale pools under
+        ``kv_dtype="int8"``."""
+        if min(batch, n_pages, page_size, max_pages) <= 0:
+            raise ValueError("paged cache dims must be positive")
+        return self.model.init_paged_cache(batch, n_pages, page_size,
+                                           max_pages,
+                                           kv_dtype=self.run.kv_dtype,
+                                           device=self.device)
+
+    def _assign_fn(self):
+        def _assign(cache, row, table_row, start_len):
+            cache.page_table[row] = table_row
+            cache.lengths[row] = start_len
+            return cache
+        return _assign
+
+    def assign_row_pages(self, cache: PagedCache, row: int, pages,
+                         start_len: int = 0) -> PagedCache:
+        """Install ``row``'s logical -> physical page map (padded with the
+        null page 0) and set its length to ``start_len``: the
+        shared-prefix length on a warm admission, 0 cold, or the row's
+        current length when reinstalling after a copy-on-write repoint.
+        In place; one bucket per cache, not per slot."""
+        max_pages = cache.page_table.shape[1]
+        if len(pages) > max_pages:
+            raise ValueError(f"{len(pages)} pages exceed the table's "
+                             f"max_pages={max_pages}")
+        table_row = np.zeros((max_pages,), np.int32)
+        table_row[:len(pages)] = pages
+        fn = self._get_exec("assign_row", _shape_key(cache),
+                            self._assign_fn)
+        return fn(cache, int(row), torch.from_numpy(table_row).to(
+            self.device), int(start_len))
+
+    def _check_chunk(self, cache: PagedCache, s: int):
+        cap = cache.page_table.shape[1] * cache.page_size
+        if s > cap:
+            raise ValueError(
+                f"{s}-token chunk exceeds the row capacity of {cap} "
+                f"({cache.page_table.shape[1]} pages x {cache.page_size})")
+
+    def _extend_fn(self, sample_kw: Optional[dict] = None):
+        def _extend(params, cache, row, tokens, generator=None):
+            logits, cache = self.model.extend_row(self.run, params, cache,
+                                                  row, tokens)
+            if sample_kw is not None:  # fused epilogue: (1,) token out
+                return fused_sample(logits, generator, **sample_kw), cache
+            return logits, cache
+        return _extend
+
+    def extend_row(self, params, cache: PagedCache, row: int, tokens
+                   ) -> Tuple[torch.Tensor, PagedCache]:
+        """Chunked prefill-with-history of one paged row: one call whether
+        the row is cold (length 0, tokens = the full prompt) or warm
+        (length = the shared-prefix length, tokens = the divergent suffix:
+        the prefix pages are READ, not recomputed). The row's pages must
+        already be installed (:meth:`assign_row_pages`). tokens: (1, L);
+        returns (last-token logits (1, V), cache), written in place."""
+        tokens = self._tokens_in(tokens)
+        self._check_chunk(cache, tokens.shape[1])
+        fn = self._get_exec("extend_row",
+                            (_shape_key(cache), _shape_key(tokens)),
+                            self._extend_fn)
+        with torch.no_grad():
+            return fn(params, cache, int(row), tokens)
+
+    def _cow_fn(self):
+        def _cow(cache, src, dst):
+            for layer in cache.layers:
+                for pool in layer.values():  # k, v and int8 scale pools
+                    pool[dst].copy_(pool[src])
+            return cache
+        return _cow
+
+    def cow_copy_page(self, cache: PagedCache, src: int, dst: int
+                      ) -> PagedCache:
+        """Copy physical page ``src`` -> ``dst`` in every layer's K and V
+        pool (and scale pools): the device half of the allocator's
+        copy-on-write barrier (``PageAllocator.writable_page`` decides
+        WHEN; the caller then reinstalls the row's repointed table). In
+        place."""
+        fn = self._get_exec("cow_copy", _shape_key(cache), self._cow_fn)
+        return fn(cache, int(src), int(dst))
+
+    def _fork_fn(self):
+        def _fork(cache, src, dst):
+            cache.page_table[dst] = cache.page_table[src]
+            cache.lengths[dst] = cache.lengths[src]
+            return cache
+        return _fork
+
+    def fork_row(self, cache: PagedCache, src: int, dst: int) -> PagedCache:
+        """Duplicate row ``src``'s page table and length into ``dst``
+        WITHOUT copying any KV (best-of-N decoding: N rows continue from
+        one prefill). Pair with ``PageAllocator.fork``: the shared partial
+        tail page is copied on the first divergent write. In place."""
+        fn = self._get_exec("fork_row", _shape_key(cache), self._fork_fn)
+        return fn(cache, int(src), int(dst))
 
     # ------------------------------------------------------------------
     # Fused sampling (token ids out of the decode call: no separate
     # sampler step over the (B, V) logits)
     # ------------------------------------------------------------------
 
-    def decode_sample(self, params, cache: Cache, token,
+    def decode_sample(self, params, cache, token,
                       generator: Optional[torch.Generator], *,
                       temperature: float = 0.0,
                       top_k: Optional[int] = None,
                       top_p: Optional[float] = None
-                      ) -> Tuple[torch.Tensor, Cache]:
+                      ) -> Tuple[torch.Tensor, Any]:
         """:meth:`decode` with the sampler fused in: returns ((B,) int32
         tokens, cache). From the same generator state the tokens equal
         ``sample`` over :meth:`decode`'s logits (on the card up to top-p
@@ -321,6 +457,25 @@ class Engine:
             lambda: self._prefill_into_fn(max_len, sample_kw=kw))
         with torch.no_grad():
             return fn(params, cache, batch, int(row), generator)
+
+    def extend_row_sample(self, params, cache: PagedCache, row: int, tokens,
+                          generator: Optional[torch.Generator], *,
+                          temperature: float = 0.0,
+                          top_k: Optional[int] = None,
+                          top_p: Optional[float] = None
+                          ) -> Tuple[torch.Tensor, PagedCache]:
+        """:meth:`extend_row` with the first sampled token fused in.
+        Returns ((1,) int32 token, cache)."""
+        tokens = self._tokens_in(tokens)
+        self._check_chunk(cache, tokens.shape[1])
+        kw = dict(temperature=temperature, top_k=top_k, top_p=top_p)
+        fn = self._get_exec(
+            "extend_row_sample",
+            (_shape_key(cache), _shape_key(tokens),
+             (temperature, top_k, top_p)),
+            lambda: self._extend_fn(sample_kw=kw))
+        with torch.no_grad():
+            return fn(params, cache, int(row), tokens, generator)
 
     # ------------------------------------------------------------------
     # Generation

@@ -78,9 +78,11 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
 assert not bad, bad
+assert {"repro_torch.kernels.decode_attention.quant",
+        "repro_torch.serving.paged"} <= set(names)
 print(len(names))
 """)
-    assert int(out.split()[-1]) >= 25  # every module of the port was loaded
+    assert int(out.split()[-1]) >= 27  # every module of the port was loaded
 
 
 def test_store_round_trips_bf16_tree_without_ml_dtypes():

@@ -14,7 +14,10 @@ import torch
 from repro_torch import configs
 from repro_torch.kernels.decode_attention import fused_sampling as fs
 from repro_torch.kernels.decode_attention import ops as da_ops
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.quant import quantize_kv
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_quant_ref, decode_attention_ref,
+    paged_decode_attention_quant_ref, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.models import RunConfig, build
@@ -212,3 +215,163 @@ def test_engine_decode_runs_the_kernels_on_card(cuda):
     want, _ = plain.decode(params, caches[1], token)
     assert toks.shape == (3,) and toks.dtype == torch.int32
     assert (got - want).abs().max().item() <= 0.05
+
+
+# int8, paged and paged-int8 decode attention: (b, h, kv, d, logical
+# positions, page size, lengths, window, cap); pools are shuffled, rows 0
+# and 1 share their first pages and the last row is free (all-zero table)
+VARIANT_CASES = [
+    (4, 28, 4, 128, 256, 16, (0, 255, 256, 1000), None, None),  # qwen2
+    (3, 8, 8, 64, 192, 8, (10, 191, 150), 128, 30.0),          # MHA, both
+    (3, 16, 4, 16, 144, 24, (143, 64, 7), 64, None),           # ps 24
+    (2, 4, 2, 32, 64, 64, (17, 63), None, None),               # one page
+]
+
+
+def _variant_inputs(cuda, case, variant, dtype, seed=5):
+    b, h, kv, d, n_pos, ps, lengths = case[:7]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = {"q": torch.randn(b, h, d, generator=g, device=cuda, dtype=dtype),
+         "lengths": torch.tensor(lengths, dtype=torch.int32, device=cuda)}
+    if variant == "quant":
+        shape = (b, n_pos, kv, d)
+    else:
+        pmax = n_pos // ps
+        shape = (1 + b * pmax, ps, kv, d)
+        table = (torch.randperm(b * pmax, generator=g, device=cuda) + 1
+                 ).reshape(b, pmax).to(torch.int32)
+        table[1, :pmax // 2] = table[0, :pmax // 2]
+        table[-1] = 0
+        x["page_table"] = table
+    data = [torch.randn(shape, generator=g, device=cuda) for _ in range(2)]
+    if variant == "paged":
+        x["k"], x["v"] = (t.to(dtype) for t in data)
+    else:
+        (x["k"], x["k_scale"]), (x["v"], x["v_scale"]) = (
+            quantize_kv(t) for t in data)
+    return x
+
+
+def _variant_call(x, variant, plain=False, **kw):
+    if variant == "quant":
+        if plain:
+            return decode_attention_quant_ref(
+                x["q"], x["k"], x["v"], x["k_scale"], x["v_scale"],
+                x["lengths"], **kw)
+        return da_ops.decode_attention(x["q"], x["k"], x["v"], x["lengths"],
+                                       k_scale=x["k_scale"],
+                                       v_scale=x["v_scale"], **kw)
+    scales = ({} if variant == "paged" else
+              dict(k_scale=x["k_scale"], v_scale=x["v_scale"]))
+    if plain:
+        fn = (paged_decode_attention_ref if variant == "paged" else
+              paged_decode_attention_quant_ref)
+        args = ((x["q"], x["k"], x["v"]) if variant == "paged" else
+                (x["q"], x["k"], x["v"], x["k_scale"], x["v_scale"]))
+        return fn(*args, x["lengths"], x["page_table"], **kw)
+    return da_ops.paged_decode_attention(x["q"], x["k"], x["v"],
+                                         x["lengths"], x["page_table"],
+                                         **scales, **kw)
+
+
+COUNTERS = {"quant": "quant_launches", "paged": "paged_launches",
+            "paged_quant": "paged_quant_launches"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", VARIANT_CASES,
+                         ids=[str(c[:6]) for c in VARIANT_CASES])
+@pytest.mark.parametrize("variant", ["quant", "paged", "paged_quant"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_variant_kernels_match_ref_on_card(cuda, case, variant, dtype):
+    window, cap = case[7:]
+    x = _variant_inputs(cuda, case, variant, dtype)
+    counter = COUNTERS[variant]
+    before = getattr(da_ops, counter)
+    got = _variant_call(x, variant, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert getattr(da_ops, counter) == before + 1
+    want = _variant_call(x, variant, plain=True, window=window, softcap=cap)
+    assert got.shape == x["q"].shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_variant_wrappers_reject_what_they_cannot_take(cuda):
+    x = _variant_inputs(cuda, VARIANT_CASES[0], "paged_quant",
+                        torch.bfloat16)
+    buf = torch.zeros(x["k"].numel() + 1, dtype=torch.int8, device=cuda)
+    misaligned = buf[1:].view(x["k"].shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        da_ops.paged_decode_attention(
+            x["q"], misaligned, x["v"], x["lengths"], x["page_table"],
+            k_scale=x["k_scale"], v_scale=x["v_scale"])
+    with pytest.raises(ValueError, match="want torch.bfloat16"):
+        da_ops.paged_decode_attention(x["q"], x["k"], x["v"], x["lengths"],
+                                      x["page_table"])
+    with pytest.raises(ValueError, match="int32"):
+        da_ops.paged_decode_attention(
+            x["q"], x["k"], x["v"], x["lengths"], x["page_table"].long(),
+            k_scale=x["k_scale"], v_scale=x["v_scale"])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        da_ops.paged_decode_attention(
+            x["q"], x["k"], x["v"], x["lengths"], x["page_table"],
+            k_scale=x["k_scale"].cpu(), v_scale=x["v_scale"].cpu())
+    with pytest.raises(ValueError, match="dtype"):
+        da_ops.paged_decode_attention(
+            x["q"].half(), x["k"], x["v"], x["lengths"], x["page_table"],
+            k_scale=x["k_scale"], v_scale=x["v_scale"])
+    q = _variant_inputs(cuda, VARIANT_CASES[0], "quant", torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        da_ops.decode_attention(q["q"], q["k"].transpose(1, 2).contiguous(
+            ).transpose(1, 2), q["v"], q["lengths"], k_scale=q["k_scale"],
+            v_scale=q["v_scale"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_engine_paged_and_int8_decode_run_the_kernels_on_card(cuda,
+                                                              kv_dtype):
+    """Engine.decode and decode_sample on a dense and a paged cache of
+    ``kv_dtype``: every layer through the matching kernel, logits within
+    0.05 of the plain path's on the same caches."""
+    cfg = configs.smoke("qwen2-7b")
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    kernel = Engine(model, RunConfig(attn_impl="pallas", kv_dtype=kv_dtype),
+                    device=cuda)
+    plain = Engine(model, RunConfig(attn_impl="xla", kv_dtype=kv_dtype),
+                   device=cuda)
+    token = torch.tensor([[1], [2], [3]], device=cuda)
+    for paged in (False, True):
+        caches = []
+        for eng in (kernel, plain):
+            if paged:
+                cache = eng.new_paged_cache(3, 1 + 3 * 10, 8, 10)
+                for row, n in ((0, 5), (2, 70)):
+                    pages = list(range(1 + row * 10, 11 + row * 10))
+                    eng.assign_row_pages(cache, row, pages)
+                    eng.extend_row(params, cache, row, torch.arange(
+                        n, device=cuda)[None] % cfg.vocab_size)
+            else:
+                cache = eng.new_cache(3, 80)
+                for row, n in ((0, 5), (2, 70)):
+                    eng.prefill_into(params, cache, row, torch.arange(
+                        n, device=cuda)[None] % cfg.vocab_size)
+            caches.append(cache)
+        name = {(False, "bf16"): "launches", (False, "int8"):
+                "quant_launches", (True, "bf16"): "paged_launches",
+                (True, "int8"): "paged_quant_launches"}[paged, kv_dtype]
+        before = (getattr(da_ops, name), fs.launches)
+        got, _ = kernel.decode(params, caches[0], token)
+        toks, _ = kernel.decode_sample(params, caches[0], token,
+                                       torch.Generator(device=cuda),
+                                       temperature=0.8, top_k=5)
+        torch.cuda.synchronize()
+        assert (getattr(da_ops, name), fs.launches) == (
+            before[0] + 2 * cfg.n_layers, before[1] + 1)
+        want, _ = plain.decode(params, caches[1], token)
+        assert toks.shape == (3,) and toks.dtype == torch.int32
+        assert (got - want).abs().max().item() <= 0.05
