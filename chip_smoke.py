@@ -13,6 +13,10 @@ points and checks what comes out:
   (a3) the int8, paged and paged-int8 decode-attention kernels vs their
        plain versions at qwen2-7b's decode shape (timed, beside the dense
        kernel at the same logical shape) and on edge cases;
+  (a4) the partials decode-attention kernel (one sequence shard's
+       unnormalised softmax state) vs its plain version on every shard of
+       caches cut into 1, 2 and 4 shards, the merged shards vs the dense
+       kernel, timed per shard;
   (b)  the paper's offline batch job on the full-width ``distilbert-imdb``
        encoder, monolithic and then parallel;
   (c)  generative serving on the full-width ``qwen2-7b`` (random weights):
@@ -21,14 +25,23 @@ points and checks what comes out:
   (d)  the orchestrated generation job under injected faults at full
        width and reduced depth;
   (e)  the example's entry point as a user runs it on the card
-       (``python -m repro_torch.examples.serve_cluster``), whose sizes
-       phases (c) and (d) share: its greedy streams and its job's tokens
-       equal theirs;
+       (``python -m repro_torch.examples.serve_cluster``, one rank of its
+       seq-shard mesh), whose sizes phases (c), (d) and (g) share: its
+       greedy streams equal (g)'s and its job's tokens (d)'s;
   (f)  paged and int8 serving on the full-width ``qwen2-7b``: 24 requests
        in three groups sharing a 448-token prefix, dense int8, paged bf16,
        paged int8 and paged int8 with fused sampling, against a dense
        bf16 run; prefix sharing, copy-on-write after a fork, int8 vs bf16
-       teacher-forced, decode round times.
+       teacher-forced, decode round times;
+  (g)  sequence-sharded serving on the full-width ``qwen2-7b``:
+       ``Engine(mesh=(1, 1), seq_shard=True)`` behind the batcher, greedy
+       and sampled (the partials kernel every round, the sampling kernel
+       when sampled, nothing else), then
+       on tamed q/k against the dense kernel path, and a decode round;
+  (h)  the same mesh path on ranks that share the card (spawned
+       processes, gloo): two ranks at full width, four at the job's depth;
+       streams bit-identical on every rank, decode round and all_reduce
+       time.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Any failed phase raises, so the script exits non-zero and
@@ -36,6 +49,9 @@ prints no result line; so does a machine with no CUDA device.
 
 Usage (on a machine with one NVIDIA H100 and the CUDA toolkit):
   python3 chip_smoke.py
+
+(``chip_smoke.py --rank-worker SPEC`` is one rank of phase (h), started by
+the script itself.)
 
 Output: the card's ``name, power.limit`` line, the build time, one line per
 kernel check and per phase (with its seconds), a ``{"kernels": [...]}``
@@ -49,6 +65,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -61,6 +78,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.data import imdb_reviews  # noqa: E402
+from repro_torch.dist import collectives  # noqa: E402
 from repro_torch.examples import serve_cluster  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import \
@@ -69,11 +87,14 @@ from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.quant import \
     quantize_kv  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
-    decode_attention_quant_ref, decode_attention_ref,
+    decode_attention_partials_ref, decode_attention_quant_ref,
+    decode_attention_ref,
     paged_decode_attention_quant_ref, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
     flash_attention_ref  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    init_from_env, make_host_mesh, rank_env, spawn_ranks)
 from repro_torch.launch.serve import run_offline  # noqa: E402
 from repro_torch.models import RunConfig, build as build_model  # noqa: E402
 from repro_torch.models import attention, transformer  # noqa: E402
@@ -484,6 +505,24 @@ def profile_round(fn, n_prof: int = 3) -> dict:
                                             / n_prof, 1) for e in top}}
 
 
+def kernel_device_ms(fn, name: str, n: int = 20) -> float:
+    """Mean device time per call of ``fn`` spent in kernels whose name
+    holds ``name``, from the profiler (after two warm-up calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and name in e.key)
+    return us / n / 1e3
+
+
 def check_decode_kernel(dev) -> dict:
     """Phase (a2), decode attention: kernel vs plain version case by case,
     timed at the serving path's shape."""
@@ -815,6 +854,186 @@ def check_variant_kernels(dev) -> list:
 
 
 # ---------------------------------------------------------------------------
+# Phase (a4): the partials decode-attention kernel (sequence shards)
+# ---------------------------------------------------------------------------
+
+# (name, b, h, kv, d, t, lengths, window, cap, q dtype). Each case's cache
+# is cut into M = 1, 2 and 4 sequence shards; every shard's (num, den, m)
+# is held against the plain version and the merged output against the
+# dense decode kernel on the whole cache. The first case is the serving
+# path's shape and is timed. "edges" holds 0, Sl - 1 and Sl of the 4-way
+# cut (Sl = 256), T - 1 and lengths past T: at length 0 three of four
+# shards, and at 255 two of four, hold no visible position (the neutral
+# element); "window" crosses shard boundaries at M = 4.
+A4_CASES = [
+    ("main_path", 8, 28, 4, 128, 1024, _PATH_LENGTHS, None, None,
+     torch.bfloat16),
+    ("edges", 8, 28, 4, 128, 1024, (0, 255, 256, 511, 512, 1023, 1024, 3000),
+     None, None, torch.bfloat16),
+    ("window", 4, 28, 4, 128, 1024, (100, 300, 600, 1023), 128, None,
+     torch.bfloat16),
+    ("softcap", 4, 28, 4, 128, 1024, (100, 500, 1023, 1500), None, 30.0,
+     torch.bfloat16),
+    ("mha_d64", 4, 12, 12, 64, 512, (0, 511, 300, 17), None, None,
+     torch.bfloat16),
+    ("fp32", 3, 8, 2, 64, 512, (10, 511, 150), 64, 20.0, torch.float32),
+    ("b1", 1, 28, 4, 128, 1024, (700,), None, None, torch.bfloat16),
+]
+A4_SHARDS = (1, 2, 4)
+# kernel vs plain partials: both compute in fp32 from the same inputs, so
+# they differ by the order of fp32 sums and exp's last bits only
+PARTIALS_RTOL = 1e-4
+
+
+def merge_partials(parts, q):
+    """The ranks' merge of ``dist.collectives``, done locally: M = max m,
+    sums of ``num e^{m-M}`` and ``den e^{m-M}``, then ``num / max(den,
+    1e-30)`` in q's dtype."""
+    m_g = torch.stack([m for _, _, m in parts]).amax(0)
+    num = sum(n * torch.exp(m - m_g)[..., None] for n, _, m in parts)
+    den = sum(dn * torch.exp(m - m_g) for _, dn, m in parts)
+    return (num / torch.clamp(den, min=1e-30)[..., None]).reshape(
+        q.shape).to(q.dtype)
+
+
+def partials_bound_ms(q, k_blk, lengths, offset, window) -> tuple:
+    """(least ms, "bytes" or "operations") of one partials call on a
+    shard: q and the (B,) lengths read once, the shard's visible K/V rows,
+    the fp32 num, den and m written once; two products over the visible
+    positions."""
+    b, h, d = q.shape
+    sl, kv = k_blk.shape[1], k_blk.shape[2]
+    local = lengths.long().cpu() - offset
+    hi = torch.clamp(local, max=sl - 1)
+    lo = (torch.zeros_like(local) if window is None
+          else torch.clamp(local - window + 1, min=0))
+    visible = int(torch.clamp(hi - lo + 1, min=0).sum())
+    nbytes = (q.numel() * q.element_size() + 4 * b
+              + visible * 2 * kv * d * k_blk.element_size()
+              + 4 * (b * h * d + 2 * b * h))
+    flops = 4.0 * visible * h * d
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[q.dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _shard(t, m, r):
+    sl = t.shape[1] // m
+    return t[:, r * sl:(r + 1) * sl].contiguous(), r * sl
+
+
+def check_partials_kernel(dev) -> dict:
+    """Phase (a4): the partials kernel against its plain version on every
+    shard of each case at M = 1, 2 and 4, the merged shards against the
+    dense decode kernel on the whole cache, the neutral element exactly,
+    and the timings at the serving path's shape."""
+    worst = 0.0
+    main = None
+    for name, b, h, kv, d, t, lengths, window, cap, dtype in A4_CASES:
+        g = torch.Generator(device=dev).manual_seed(len(name) + 11)
+        q = torch.randn(b, h, d, generator=g, device=dev, dtype=dtype)
+        k, v = (torch.randn(b, t, kv, d, generator=g, device=dev,
+                            dtype=dtype) for _ in range(2))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        dense = da_ops.decode_attention(q, k, v, lens, window=window,
+                                        softcap=cap)
+        for m in A4_SHARDS:
+            parts, err, neutral = [], 0.0, 0
+            for r in range(m):
+                (kb, off), (vb, _) = _shard(k, m, r), _shard(v, m, r)
+                got = da_ops.decode_attention_partials(
+                    q, kb, vb, lens, offset=off, window=window, softcap=cap)
+                torch.cuda.synchronize()
+                want = decode_attention_partials_ref(
+                    q, kb, vb, lens, offset=off, window=window, softcap=cap)
+                for x, y in zip(got, want):
+                    e = (x - y).abs().max().item() / max(
+                        1.0, y.abs().max().item())
+                    err = max(err, e if math.isfinite(e) else math.inf)
+                # rows this shard sees nothing of: exactly (0, 0, -1e30)
+                local = lens.long() - off
+                lo = (torch.zeros_like(local) if window is None
+                      else torch.clamp(local - window + 1, min=0))
+                empty = (torch.clamp(local, max=kb.shape[1] - 1) < lo)
+                for row in torch.nonzero(empty).flatten().tolist():
+                    neutral += 1
+                    if got[0][row].abs().max() != 0 or \
+                            got[1][row].abs().max() != 0 or \
+                            (got[2][row] != -1e30).any():
+                        raise AssertionError(f"partials {name} M={m} shard "
+                                             f"{r} row {row}: not the "
+                                             f"neutral element")
+                parts.append(got)
+            merged = merge_partials(parts, q)
+            merr = (merged.float() - dense.float()).abs().max().item()
+            ok = (err <= PARTIALS_RTOL and math.isfinite(merr)
+                  and merr <= TOL[dtype])
+            print(f"kernel decode_attention_partials {name} M={m}: "
+                  f"q{tuple(q.shape)} k{tuple(k.shape)} lengths "
+                  f"{list(lengths)} window {window} cap {cap} "
+                  f"{str(dtype).removeprefix('torch.')}: shards vs plain "
+                  f"max rel err {err:.3g} (tol {PARTIALS_RTOL:g}), "
+                  f"{neutral} empty (row, shard) pairs neutral, merged vs "
+                  f"dense kernel max_abs_err={merr:.3g} tol={TOL[dtype]:g} "
+                  f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise AssertionError(f"decode_attention_partials disagrees "
+                                     f"on {name} at M={m}: {err}, {merr}")
+            worst = max(worst, err)
+        if main is None:
+            main = (q, k, v, lens)
+
+    q, k, v, lens = main
+    dense_ms = cuda_ms(lambda: da_ops.decode_attention(q, k, v, lens),
+                       iters=50)
+    timed = {}
+    for m in A4_SHARDS:
+        per = []
+        for r in range(m):
+            (kb, off), (vb, _) = _shard(k, m, r), _shard(v, m, r)
+            ms = cuda_ms(lambda: da_ops.decode_attention_partials(
+                q, kb, vb, lens, offset=off), iters=50)
+            bound, by = partials_bound_ms(q, kb, lens, off, None)
+            per.append({"ms": ms, "bound_ms": bound, "bound_by": by})
+            if m == 1:
+                plain_ms = cuda_ms(lambda: decode_attention_partials_ref(
+                    q, kb, vb, lens, offset=off), iters=20)
+        timed[m] = per
+        print(f"kernel decode_attention_partials at the serving path's "
+              f"shape cut into M={m}: per shard "
+              f"{[round(x['ms'], 4) for x in per]} ms, bounds "
+              f"{[round(x['bound_ms'], 5) for x in per]} ms "
+              f"({per[0]['bound_by']}); dense decode kernel on the whole "
+              f"cache {dense_ms:.4f} ms")
+    one = timed[1][0]
+    # the kernels' own device time (the events above include the
+    # wrapper's output allocations and the host's launch)
+    kern_ms = kernel_device_ms(lambda: da_ops.decode_attention_partials(
+        q, k, v, lens), "decode_kernel")
+    dense_kern_ms = kernel_device_ms(
+        lambda: da_ops.decode_attention(q, k, v, lens), "decode_kernel")
+    print(f"kernel decode_attention_partials at the serving path's shape "
+          f"q{tuple(q.shape)} k{tuple(k.shape)}, one shard: "
+          f"{one['ms']:.4f} ms, plain {plain_ms:.4f} ms, dense kernel "
+          f"{dense_ms:.4f} ms, no single library call, bound "
+          f"{one['bound_ms']:.5f} ms ({one['bound_by']}); profiled device "
+          f"time of the kernel alone {kern_ms:.4f} ms, of the dense kernel "
+          f"{dense_kern_ms:.4f} ms")
+    return {"name": "decode_attention_partials", "route": "cuda",
+            "source": "src/repro_torch/kernels/decode_attention/"
+                      "decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/"
+                        "decode_attention.py:317",
+            "max_abs_err": worst, "ms": one["ms"], "plain_ms": plain_ms,
+            "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+            "library_ms": None, "dense_kernel_ms": dense_ms,
+            "kernel_device_ms": kern_ms,
+            "dense_kernel_device_ms": dense_kern_ms,
+            "per_shard": {str(m): x for m, x in timed.items()}}
+
+
+# ---------------------------------------------------------------------------
 # Phase (c): generative serving at full width
 # ---------------------------------------------------------------------------
 
@@ -826,7 +1045,7 @@ SEED = serve_cluster.SEED
 def reset_counts():
     fa_ops.launches = da_ops.launches = fs.launches = 0
     da_ops.quant_launches = da_ops.paged_launches = 0
-    da_ops.paged_quant_launches = 0
+    da_ops.paged_quant_launches = da_ops.partials_launches = 0
 
 
 def read_counts() -> dict:
@@ -835,6 +1054,7 @@ def read_counts() -> dict:
             "decode_attention_quant": da_ops.quant_launches,
             "paged_decode_attention": da_ops.paged_launches,
             "paged_decode_attention_quant": da_ops.paged_quant_launches,
+            "decode_attention_partials": da_ops.partials_launches,
             "fused_sample": fs.launches}
 
 
@@ -844,7 +1064,7 @@ NO_LAUNCHES = dict.fromkeys(read_counts(), 0)
 def clone_cache(cache: Cache) -> Cache:
     return Cache(layers=tuple({n: t.clone() for n, t in layer.items()}
                               for layer in cache.layers),
-                 lengths=cache.lengths.clone())
+                 lengths=cache.lengths.clone(), seq_shards=cache.seq_shards)
 
 
 @contextlib.contextmanager
@@ -1192,14 +1412,185 @@ def run_generation_job(dev) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# Phase (g): sequence-sharded serving, full width, one rank
+# ---------------------------------------------------------------------------
+
+# teacher-forced dense kernel vs seq-shard paths on tamed q/k: the two
+# compute the same attention; the seq path's prefill takes the plain path
+SEQ_RTOL = 0.02
+
+
+def seq_serve(engine, params, cfg, reqs, **kw) -> dict:
+    """Continuous batching through a seq-shard engine with the launch
+    counts read around it: the partials kernel 28 x rounds and, sampled,
+    the sampling kernel once an admission and once a round, nothing else
+    (prefill takes the plain path); the cache's tensors at one address
+    every round."""
+    ptrs = set()
+    torch.cuda.synchronize()
+    reset_counts()
+    res = serve_cluster.serve(
+        engine, params, reqs, n_slots=GEN.n_slots, max_len=GEN.max_len,
+        seed=SEED, on_round=lambda b: ptrs.add(
+            tuple(t.data_ptr() for t in b.cache.tensors())), **kw)
+    torch.cuda.synchronize()
+    res["counts"] = got = read_counts()
+    b = res["batcher"]
+    rejected = b.take_rejected()
+    if rejected or len(res["completed"]) != len(reqs) or \
+            b.decode_dispatches != b.rounds or b.paged:
+        raise AssertionError(f"seq-shard serving: {len(rejected)} rejected, "
+                             f"{len(res['completed'])} completed, "
+                             f"{b.decode_dispatches} decode calls in "
+                             f"{b.rounds} rounds, paged {b.paged}")
+    want = dict(NO_LAUNCHES,
+                decode_attention_partials=cfg.n_layers * b.rounds,
+                fused_sample=(len(reqs) + b.rounds if b.fused_sampling
+                              else 0))
+    if got != want:
+        raise AssertionError(f"seq-shard launches {got}, want {want}")
+    if b.fused_sampling and b.sampler_dispatches:
+        raise AssertionError(f"{b.sampler_dispatches} host-sampler steps "
+                             f"with fused sampling")
+    if len(ptrs) != 1:
+        raise AssertionError("the seq-shard cache moved between rounds")
+    res["streams"] = [r.generated for r in reqs]
+    return res
+
+
+def seq_engine(model, dev, mesh=None) -> Engine:
+    """The example's mesh engine: ``seq_shard=True`` on a (1, ranks)
+    mesh (one rank unless ``mesh`` is given)."""
+    return Engine(model, serve_cluster.MESH_RUN, device=dev,
+                  mesh=mesh or make_host_mesh((1, 1)), seq_shard=True)
+
+
+def run_seq_shard(dev) -> tuple:
+    """Phase (g): full-width qwen2-7b through ``Engine(mesh=(1, 1),
+    seq_shard=True)`` behind ``ContinuousBatcher``: greedy and sampled at
+    the reference's init (the main path), then on tamed q/k against the
+    dense kernel path (teacher-forced and greedy streams) and a decode
+    round on CUDA events. Returns the launch counts, the greedy streams at
+    the reference's init and, for phase (h), the tamed streams and the
+    near-tie bound."""
+    cfg = configs.get("qwen2-7b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    engine = seq_engine(model, dev)
+    if engine.run.attn_impl != "seq_shard":
+        raise AssertionError(f"attn_impl {engine.run.attn_impl}")
+
+    def requests():
+        return serve_cluster.make_requests(cfg.vocab_size, GEN.n_requests,
+                                           GEN.prompt_len, GEN.new_tokens,
+                                           SEED)
+
+    greedy = seq_serve(engine, params, cfg, requests())
+    sampled = seq_serve(engine, params, cfg, requests(), fused_sampling=True,
+                        **serve_cluster.SAMPLING)
+    counts = {k: greedy["counts"][k] + sampled["counts"][k]
+              for k in greedy["counts"]}
+    block = tuple(greedy["batcher"].cache.layers[0]["k"].shape)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": {"data": 1,
+           "model": 1}, "cache_block": block, "seed": SEED}
+    for name, res in (("greedy", greedy), ("sampled", sampled)):
+        b = res["batcher"]
+        out[name] = {"rounds": b.rounds, "tokens": res["tokens"],
+                     "wall_s": res["wall_s"],
+                     "tokens_per_s": res["tokens"] / res["wall_s"],
+                     "sampler_dispatches": b.sampler_dispatches,
+                     "launches": res["counts"]}
+    print(f"(g) seq-shard serving at the reference's init, mesh (1, 1), "
+          f"cache block {block}: greedy {json.dumps(out['greedy'])}; "
+          f"sampled {json.dumps(out['sampled'])}")
+
+    # tamed q/k: the seq-shard path against the dense kernel path,
+    # teacher-forced, first from the same admitted K/V (the decode paths
+    # alone: at one shard the partials loop is the dense kernel's), then
+    # each path admitting its own rows (its prefill: plain attention
+    # against the flash kernel, so flips at near-ties may appear)
+    tame_attention(cfg, params)
+    dense = Engine(model, serve_cluster.RUN, device=dev)
+    batch = requests()[:GEN.n_slots]
+    cache, logits = admit_rows(dense, params, batch, False)
+    tf = teacher_forced([(dense, False), (engine, False)], params, batch,
+                        TEACHER_ROUNDS, admitted=((cache, logits), (
+                            clone_cache(cache), logits.clone())))
+    del cache
+    tf_own = teacher_forced([(dense, False), (engine, False)], params,
+                            batch, TEACHER_ROUNDS)
+    for name, r in (("decode paths, same admitted K/V", tf),
+                    ("whole paths, each its own prefill", tf_own)):
+        print(f"(g) tamed q/k, dense kernel vs seq-shard {name}, "
+              f"teacher-forced {TEACHER_ROUNDS} rounds on {GEN.n_slots} "
+              f"rows: {r['flips']} argmax flips in {r['rows']} rows, max "
+              f"|logit diff| {r['max_abs_diff']:.4g}, relative RMS "
+              f"{r['rel_rms']:.4g} (tol {SEQ_RTOL})")
+    if tf["rel_rms"] > SEQ_RTOL or tf["flips"] or \
+            tf_own["rel_rms"] > SEQ_RTOL:
+        raise AssertionError(f"seq-shard vs dense kernel path: {tf}, "
+                             f"{tf_own}")
+    reqs = requests()
+    torch.cuda.synchronize()
+    dense_res = serve_cluster.serve(dense, params, reqs, n_slots=GEN.n_slots,
+                                    max_len=GEN.max_len, seed=SEED)
+    dense_streams = [r.generated for r in reqs]
+    tamed = seq_serve(engine, params, cfg, requests())
+    for k in counts:
+        counts[k] += tamed["counts"][k]
+    tie = NOISE_FACTOR * tf_own["max_abs_diff"] + LOGIT_FLOOR
+    prompts = [r.prompt for r in reqs]
+    parted = parted_at_near_ties(dense, params, prompts, dense_streams,
+                                 tamed["streams"], tie)
+    print(f"(g) tamed greedy streams, seq-shard vs dense kernel path: "
+          f"{parted} of {len(reqs)} parted, all at near-ties (bound "
+          f"{tie:.4g}); dense run {dense_res['batcher'].rounds} rounds, "
+          f"seq-shard run {tamed['batcher'].rounds}")
+
+    # one decode round on CUDA events, in turns with the dense path
+    caches = {"dense": (dense, admit_rows(dense, params, batch, False)[0]),
+              "seq_shard": (engine, admit_rows(engine, params, batch,
+                                               False)[0])}
+    tok = torch.tensor([[r.prompt[-1]] for r in batch], device=dev,
+                       dtype=torch.int32)
+    times = {name: [] for name in caches}
+    for name in ("dense", "seq_shard", "seq_shard", "dense"):
+        eng, cache = caches[name]
+        times[name].append(cuda_ms(lambda: eng.decode(params, cache, tok),
+                                   iters=5, warmup=1))
+    rounds = {}
+    for name, (eng, cache) in caches.items():
+        ms = sum(times[name]) / len(times[name])
+        prof = profile_round(lambda: eng.decode(params, cache, tok))
+        rounds[name] = {"ms": ms, "ms_turns": times[name],
+                        "busy_ms": prof["busy_ms"],
+                        "launches": prof["launches"],
+                        "idle_share": 1 - prof["busy_ms"] / ms,
+                        "top_kernels_us": prof["breakdown"]}
+        print(f"(g) decode round {name}: {ms:.3f} ms on CUDA events (turns "
+              f"{[round(t, 3) for t in times[name]]}), device busy "
+              f"{prof['busy_ms']:.3f} ms in {prof['launches']:.0f} launches,"
+              f" idle share {1 - prof['busy_ms'] / ms:.3f}; top kernels "
+              f"(us/round) {prof['breakdown']}")
+    del caches
+    out.update(teacher_forced_decode=tf, teacher_forced_whole=tf_own,
+               near_tie_bound=tie, streams_parted=parted,
+               decode_round=rounds, launches=counts)
+    print("seq_shard " + json.dumps(out))
+    return counts, greedy["streams"], {"streams": tamed["streams"],
+                                       "tie": tie}
+
+
+# ---------------------------------------------------------------------------
 # Phase (e): the example's entry point, as a user runs it
 # ---------------------------------------------------------------------------
 
 
 def run_entry_point(dev, greedy_streams, job_tokens) -> dict:
-    """``serve_cluster.main([])`` on the card: every request served in one
-    decode call a round, the launches its runs imply, and the same greedy
-    streams and job tokens as phases (c) and (d), which took its sizes."""
+    """``serve_cluster.main([])`` on the card: every request served through
+    the one-rank seq-shard mesh in one decode call a round, the launches
+    its runs imply, and the same greedy streams and job tokens as phases
+    (g) and (d), which took its sizes."""
     torch.cuda.synchronize()
     reset_counts()
     out = serve_cluster.main([])
@@ -1218,13 +1609,14 @@ def run_entry_point(dev, greedy_streams, job_tokens) -> dict:
                                  f" {admissions} admitted, "
                                  f"{b.decode_dispatches} decode calls in "
                                  f"{b.rounds} rounds")
-        want["flash_attention"] += n_layers * admissions
-        want["decode_attention"] += n_layers * b.decode_dispatches
+        # the mesh path: plain prefill, the partials kernel every round,
+        # sampled: the sampling kernel every admission and round
+        want["decode_attention_partials"] += n_layers * b.decode_dispatches
         if b.fused_sampling:
-            if b.sampler_dispatches:
-                raise AssertionError(f"{b.sampler_dispatches} host-sampler "
-                                     f"steps with fused sampling")
             want["fused_sample"] += admissions + b.decode_dispatches
+        if b.fused_sampling and b.sampler_dispatches:
+            raise AssertionError(f"{b.sampler_dispatches} host-sampler "
+                                 f"steps with fused sampling")
     n_inv = out["job"]["report"].n_invocations
     want["flash_attention"] += serve_cluster.JOB_LAYERS * n_inv
     want["decode_attention"] += (serve_cluster.JOB_LAYERS * n_inv
@@ -1234,12 +1626,12 @@ def run_entry_point(dev, greedy_streams, job_tokens) -> dict:
     streams = [r.generated for r in out["greedy"]["requests"]]
     if streams != greedy_streams:
         raise AssertionError("the entry point's greedy streams differ from "
-                             "phase (c)'s")
+                             "phase (g)'s")
     if not np.array_equal(out["job"]["tokens"], job_tokens):
         raise AssertionError("the entry point's job tokens differ from "
                              "phase (d)'s")
     print(f"entry point serve_cluster.main([]): launches {counts}; greedy "
-          f"streams and job tokens equal phases (c) and (d)")
+          f"streams and job tokens equal phases (g) and (d)")
     return counts
 
 
@@ -1309,16 +1701,21 @@ def admit_rows(engine, params, reqs, paged: bool):
 
 
 def teacher_forced(engines, params, reqs, rounds,
-                   near_ties_only: bool = True) -> dict:
+                   near_ties_only: bool = True, admitted=None) -> dict:
     """The same rows through two engine paths, decoded ``rounds`` rounds on
     the FIRST path's greedy tokens (teacher forcing). With
     ``near_ties_only`` each argmax flip must be a near-tie: the first
     path's top-2 gap at most twice that round's max |logit difference|
-    (``tests/test_kv_int8.py``'s rule). Returns the flips, the max
-    difference and the logits' relative RMS."""
+    (``tests/test_kv_int8.py``'s rule). ``admitted`` gives both paths'
+    caches and admission logits instead of admitting ``reqs`` through
+    each. Returns the flips, the max difference and the logits' relative
+    RMS."""
     (a_eng, a_paged), (b_eng, b_paged) = engines
-    ca, la = admit_rows(a_eng, params, reqs, a_paged)
-    cb, lb = admit_rows(b_eng, params, reqs, b_paged)
+    if admitted is None:
+        ca, la = admit_rows(a_eng, params, reqs, a_paged)
+        cb, lb = admit_rows(b_eng, params, reqs, b_paged)
+    else:
+        (ca, la), (cb, lb) = admitted
     pairs, flips, hard = [(la, lb)], 0, []
     tok = la.argmax(-1).to(torch.int32)[:, None]
     for step in range(rounds):
@@ -1762,7 +2159,158 @@ def run_paged_int8(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase (h): seq-sharded serving on ranks that share the card
+# ---------------------------------------------------------------------------
+
+# (name, ranks, layers, requests): two ranks at full width on the card
+# sizes, then four at the job's depth on fewer requests (the only run
+# where one row spans more than two shards)
+RANK_RUNS = [("seq_shard_qwen2_7b_2_ranks", 2, None, GEN.n_requests),
+             ("seq_shard_qwen2_7b_4_layers_4_ranks", 4,
+              serve_cluster.JOB_LAYERS, 8)]
+RANK_TIMEOUT_S = 600
+
+
+def rank_worker(spec_path: str):
+    """One rank of phase (h), started by ``launch.mesh.spawn_ranks``: the
+    tamed model (seed ``SEED``) on a (1, ranks) seq-shard mesh, gloo on the
+    shared card; continuous batching with its launch counts, the cache's
+    block and address, a decode round on CUDA events, and the time spent
+    in all_reduce per round. Rank 0 also holds the streams to the given
+    ones (or, without any, to a single-device dense kernel run of the same
+    model) at near-ties. Writes its result as JSON beside the spec."""
+    spec = json.loads(Path(spec_path).read_text())
+    dev = init_from_env("cuda")
+    rank, world = rank_env()
+    cfg = configs.get("qwen2-7b")
+    if spec["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    tame_attention(cfg, params)
+    engine = seq_engine(model, dev, make_host_mesh((1, world)))
+    reqs = serve_cluster.make_requests(cfg.vocab_size, spec["n_requests"],
+                                       GEN.prompt_len, GEN.new_tokens, SEED)
+    res = seq_serve(engine, params, cfg, reqs)
+    b = res["batcher"]
+    block = tuple(b.cache.layers[0]["k"].shape)
+    want_block = (GEN.n_slots, GEN.max_len // world, cfg.n_kv_heads,
+                  cfg.head_dim)
+    if block != want_block or b.cache.seq_shards != world:
+        raise AssertionError(f"rank {rank}: cache block {block} of "
+                             f"{b.cache.seq_shards}, want {want_block}")
+
+    # a decode round: CUDA events, then a pass timing each all_reduce
+    # (synchronised around it) inside host-clock rounds
+    batch = reqs[:GEN.n_slots]
+    cache, _ = admit_rows(engine, params, batch, False)
+    tok = torch.tensor([[r.prompt[-1]] for r in batch], device=dev,
+                       dtype=torch.int32)
+    round_ms = cuda_ms(lambda: engine.decode(params, cache, tok), iters=5,
+                       warmup=1)
+    spent = []
+    plain_all_reduce = collectives._all_reduce
+
+    def timed_all_reduce(t, op, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_all_reduce(t, op, group)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return t
+
+    n = 5
+    collectives._all_reduce = timed_all_reduce
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            engine.decode(params, cache, tok)
+        torch.cuda.synchronize()
+        timed_round_ms = 1e3 * (time.perf_counter() - t0) / n
+    finally:
+        collectives._all_reduce = plain_all_reduce
+    prof = profile_round(lambda: engine.decode(params, cache, tok))
+    out = {"rank": rank, "ranks": world, "layers": cfg.n_layers,
+           "requests": len(reqs), "rounds": b.rounds,
+           "tokens": res["tokens"], "wall_s": res["wall_s"],
+           "tokens_per_s": res["tokens"] / res["wall_s"],
+           "cache_block": block, "launches": res["counts"],
+           "streams": res["streams"], "round_ms": round_ms,
+           "all_reduce_calls_per_round": len(spent) / n,
+           "all_reduce_ms_per_round": 1e3 * sum(spent) / n,
+           "timed_round_ms": timed_round_ms,
+           "busy_ms": prof["busy_ms"], "launches_per_round": prof["launches"],
+           "idle_share": 1 - prof["busy_ms"] / round_ms}
+    if rank == 0:
+        want = spec.get("streams")
+        if want is None:  # the same model on one device, dense kernels
+            dense = Engine(model, serve_cluster.RUN, device=dev)
+            ref = serve_cluster.make_requests(
+                cfg.vocab_size, spec["n_requests"], GEN.prompt_len,
+                GEN.new_tokens, SEED)
+            serve_cluster.serve(dense, params, ref, n_slots=GEN.n_slots,
+                                max_len=GEN.max_len, seed=SEED)
+            want = [r.generated for r in ref]
+        out["parted"] = parted_at_near_ties(
+            engine, params, [r.prompt for r in reqs], want, res["streams"],
+            spec["tie"])
+    Path(spec["out"], f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def run_ranks(dev, seq_info) -> dict:
+    """Phase (h): ``RANK_RUNS``, each as spawned processes sharing the card
+    (gloo); the streams bit-identical on every rank and, at near-ties, equal
+    to phase (g)'s (two ranks, full width) or to one device's (four ranks).
+    Returns each run's per-rank launch counts, summed."""
+    torch.cuda.empty_cache()
+    paths = {}
+    for name, ranks, layers, n_req in RANK_RUNS:
+        with tempfile.TemporaryDirectory() as tmp:
+            spec = {"layers": layers, "n_requests": n_req, "out": tmp,
+                    "tie": seq_info["tie"],
+                    "streams": None if layers else seq_info["streams"]}
+            spec_path = Path(tmp, "spec.json")
+            spec_path.write_text(json.dumps(spec))
+            t0 = time.perf_counter()
+            done = spawn_ranks([str(ROOT / "chip_smoke.py"), "--rank-worker",
+                                str(spec_path)], ranks,
+                               store_path=str(Path(tmp, "store")),
+                               timeout=RANK_TIMEOUT_S, cwd=str(ROOT))
+            wall = time.perf_counter() - t0
+            for r, p in enumerate(done):
+                if p.returncode:
+                    raise AssertionError(
+                        f"{name}: rank {r} exited {p.returncode}:\n"
+                        f"{p.stdout[-2000:]}\n{p.stderr[-4000:]}")
+            res = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                   for r in range(ranks)]
+        backends = {line for p in done for line in p.stdout.splitlines()
+                    if "process group backend" in line}
+        if any(x["streams"] != res[0]["streams"] for x in res):
+            raise AssertionError(f"{name}: the ranks' streams differ")
+        counts = {k: sum(x["launches"][k] for x in res)
+                  for k in res[0]["launches"]}
+        summary = {k: v for k, v in res[0].items() if k != "streams"}
+        summary.update(ranks_wall_s=wall, all_reduce_share=(
+            res[0]["all_reduce_ms_per_round"] / res[0]["timed_round_ms"]),
+            per_rank_round_ms=[x["round_ms"] for x in res],
+            per_rank_all_reduce_ms=[x["all_reduce_ms_per_round"]
+                                    for x in res],
+            launches_all_ranks=counts)
+        print(f"(h) {name}: {sorted(backends)}; streams bit-identical on "
+              f"{ranks} ranks, {res[0]['parted']} of {n_req} parted from "
+              f"{'phase (g)' if layers is None else 'one device'} at "
+              f"near-ties; {json.dumps(summary)}")
+        paths[name] = counts
+    return paths
+
+
 def main():
+    if sys.argv[1:2] == ["--rank-worker"]:  # one rank of phase (h)
+        rank_worker(sys.argv[2])
+        return
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device here; this script runs the port "
               "on a GPU", file=sys.stderr)
@@ -1791,28 +2339,37 @@ def main():
                phase("(a2) fused sampling vs plain", check_sampling_kernel)]
     kernels += phase("(a3) int8 / paged decode attention vs plain",
                      check_variant_kernels)
+    kernels.append(phase("(a4) partials decode attention vs plain",
+                         check_partials_kernel))
     paths = {"offline_distilbert": {"flash_attention": phase(
         "(b) offline job, distilbert-imdb", run_main_path)}}
-    paths["generate_qwen2_7b"], streams = phase(
+    paths["generate_qwen2_7b"], _ = phase(
         "(c) generative serving, qwen2-7b", run_generation)
     torch.cuda.empty_cache()  # phase (c)'s model is gone
     paths[f"generation_job_qwen2_7b_{serve_cluster.JOB_LAYERS}_layers"], \
         job_tokens = phase("(d) generation job, qwen2-7b widths",
                            run_generation_job)
     torch.cuda.empty_cache()
+    paths["seq_shard_qwen2_7b"], seq_streams, seq_info = phase(
+        "(g) seq-sharded serving, qwen2-7b, one rank", run_seq_shard)
+    torch.cuda.empty_cache()
     paths["serve_cluster_main"] = phase(
         "(e) entry point serve_cluster.main",
-        lambda d: run_entry_point(d, streams, job_tokens))
+        lambda d: run_entry_point(d, seq_streams, job_tokens))
     torch.cuda.empty_cache()
     paths["paged_int8_qwen2_7b"] = phase(
         "(f) paged and int8 serving, qwen2-7b", run_paged_int8)
+    torch.cuda.empty_cache()
+    paths.update(phase("(h) seq-sharded serving, ranks sharing the card",
+                       lambda d: run_ranks(d, seq_info)))
     # the path each kernel must have been launched on
     main_path = {"flash_attention": "generate_qwen2_7b",
                  "decode_attention": "generate_qwen2_7b",
                  "fused_sample": "generate_qwen2_7b",
                  "decode_attention_quant": "paged_int8_qwen2_7b",
                  "paged_decode_attention": "paged_int8_qwen2_7b",
-                 "paged_decode_attention_quant": "paged_int8_qwen2_7b"}
+                 "paged_decode_attention_quant": "paged_int8_qwen2_7b",
+                 "decode_attention_partials": "seq_shard_qwen2_7b"}
     for k in kernels:
         by_path = {name: counts.get(k["name"], 0)
                    for name, counts in paths.items()}

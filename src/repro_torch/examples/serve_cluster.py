@@ -1,34 +1,45 @@
-"""Generative serving with fault injection, on one device.
+"""Generative serving over a sequence-sharded mesh, with fault injection.
 
-Counterpart of ``examples/serve_cluster.py``: an engine drives LM
-generation — continuous batching over one shared ragged KV cache — and
-then an orchestrated generation job whose workers run ``Engine.generate``
-while crashes and stragglers are injected, showing retries, speculation,
+Counterpart of ``examples/serve_cluster.py``: a mesh-aware engine drives
+LM generation — continuous batching over one shared ragged KV cache whose
+sequence dim is cut over the mesh's "model" axis — and then an
+orchestrated generation job whose workers run ``Engine.generate`` while
+crashes and stragglers are injected, showing retries, speculation,
 elastic concurrency and exactly-once commits on a generative workload.
 
-The reference lays a ``(1, n)`` mesh over every local device and shards
-the decode cache's sequence over it (``seq_shard=True``). The port has no
-``dist/`` yet (ROADMAP Queue 1 #8), so this runs on ONE device, with no
-mesh and a dense shared cache.
+As in the reference, the mesh is ``(1, n)`` ("data", "model") over every
+rank and the engine runs with ``seq_shard=True``: each rank holds its
+block of the cache, decode attention runs the partials kernel on it and
+the ranks merge with all_reduce (``dist.collectives``). Launched plainly
+it is one rank (the one-block path: the partials kernel over the whole
+cache). ``--ranks M`` spawns M ranks (``launch.mesh.spawn_ranks``, gloo
+when they share one card) and so does ``torchrun --nproc-per-node M``;
+rank 0 alone prints. The generation job runs on rank 0 on its own
+single-device engine: its workers' calls follow a measured clock, which
+ranks would not share.
 
 On ``--device cpu`` it runs ``configs.smoke("qwen2-7b")`` at the
 reference example's sizes. On the card (the default) it runs the
 full-width ``qwen2-7b`` on random weights drawn from ``SEED``:
 continuous batching of 24 requests (prompts of 64-512 tokens, 16-64 new
-tokens) over 8 slots of a 1024-position cache, greedy and then with fused
-sampling; and the generation job at full width but ``JOB_LAYERS``
-layers, because every cold function loads its own copy of the params
-onto the card.
+tokens) over 8 slots of a 1024-position cache, greedy and then sampled
+through the sampling kernel; and the generation job at full width but
+``JOB_LAYERS`` layers, because every cold function loads its own copy of
+the params onto the card.
 
 Usage:
   python -m repro_torch.examples.serve_cluster            # one GPU
+  python -m repro_torch.examples.serve_cluster --ranks 2  # 2 ranks, 1 GPU
   python -m repro_torch.examples.serve_cluster --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import pickle
+import sys
+import tempfile
 import time
 from typing import Callable, List, Optional
 
@@ -42,6 +53,8 @@ from repro_torch.core import (ArtifactStore, BatchJob, ElasticPolicy,
                               decompose, merge)
 from repro_torch.core.job import InvokeOutcome
 from repro_torch.data.pipeline import DatasetRef
+from repro_torch.launch.mesh import (init_from_env, make_host_mesh, rank_env,
+                                     spawn_ranks)
 from repro_torch.models import RunConfig, build
 from repro_torch.serving import ContinuousBatcher, Engine, Request
 
@@ -73,6 +86,8 @@ CARD_SIZES = Sizes(24, 8, (64, 513), (16, 65), 1024, 96, 64, 12, 8, 4, 8)
 JOB_LAYERS = 4
 SEED = 0  # weights, requests and prompts
 RUN = RunConfig(attn_impl="pallas", cache_pad=64)
+# the serving engine's knobs under the mesh (attn_impl becomes "seq_shard")
+MESH_RUN = RunConfig(cache_pad=64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,20 +246,47 @@ def run_generation_job(engine: Engine, params, prompts: np.ndarray, *,
             "chunks": chunks, "tokens": tokens}
 
 
+def spawn(argv, ranks: int, timeout: float = 3600.0) -> int:
+    """This example as ``ranks`` processes joined by a file rendezvous;
+    relays rank 0's output. Returns the first non-zero exit code, or 0."""
+    with tempfile.TemporaryDirectory() as tmp:
+        done = spawn_ranks(["-m", "repro_torch.examples.serve_cluster",
+                            *argv], ranks,
+                           store_path=os.path.join(tmp, "store"),
+                           timeout=timeout)
+    print(done[0].stdout, end="")
+    for r in done:
+        if r.returncode:
+            print(r.stderr[-4000:], file=sys.stderr)
+            return r.returncode
+    return 0
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda",
                     help='where the model runs ("cuda" or "cpu")')
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="spawn this many ranks on a (1, ranks) mesh")
     args = ap.parse_args(argv)
-    dev = torch.device(args.device)
+    if args.ranks > 1 and rank_env()[1] == 1:
+        code = spawn(["--device", args.device], args.ranks)
+        if code:
+            raise SystemExit(code)
+        return {}
+    dev = init_from_env(args.device)
+    rank, world = rank_env()
+    say = print if rank == 0 else (lambda *a, **k: None)
     sizes = CPU_SIZES if dev.type == "cpu" else CARD_SIZES
     cfg = (configs.smoke("qwen2-7b") if dev.type == "cpu"
            else configs.get("qwen2-7b"))
 
-    # --- continuous batching over one shared ragged cache ---------------
+    # --- continuous batching over one seq-sharded shared ragged cache ---
+    mesh = make_host_mesh((1, world), ("data", "model"))
     model = build(cfg)
-    engine = Engine(model, RUN, device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    engine = Engine(model, MESH_RUN, device=dev, mesh=mesh, seq_shard=True)
+    params = engine.shard_params(model.init(
+        torch.Generator(device=dev).manual_seed(SEED), dev))
     out = {}
     for mode, kw in (("greedy", {}),
                      ("sampled", dict(fused_sampling=True, **SAMPLING))):
@@ -254,15 +296,18 @@ def main(argv=None) -> dict:
                     max_len=sizes.max_len, seed=SEED, **kw)
         res["requests"] = reqs
         b = res["batcher"]
-        print(f"== continuous batching ({mode}): {len(res['completed'])} "
-              f"requests over {sizes.n_slots} slots: {b.decode_steps} "
-              f"slot-steps of decode in {b.decode_dispatches} batched "
-              f"decode calls ({b.rounds} rounds, one shared ragged cache), "
-              f"{b.sampler_dispatches} host-sampler steps, "
-              f"{engine.compile_count} shape buckets, "
-              f"{res['tokens'] / res['wall_s']:.1f} tokens/s")
+        say(f"== continuous batching ({mode}, mesh {mesh.shape}, cache "
+            f"block {tuple(b.cache.layers[0]['k'].shape)} a rank): "
+            f"{len(res['completed'])} requests over {sizes.n_slots} slots: "
+            f"{b.decode_steps} slot-steps of decode in "
+            f"{b.decode_dispatches} batched decode calls ({b.rounds} "
+            f"rounds, one shared ragged cache), {b.sampler_dispatches} "
+            f"host-sampler steps, {engine.compile_count} shape buckets, "
+            f"{res['tokens'] / res['wall_s']:.1f} tokens/s")
         out[mode] = res
     del params, engine
+    if rank != 0:
+        return out
 
     # --- orchestrated generation job under faults -----------------------
     job_engine, job_params, prompts = job_setup(cfg, dev, sizes)

@@ -14,7 +14,16 @@
 //     pool (P,ps,KV,D) read through a page table (B,Pmax) int32;
 //   * paged_decode_attention_quant_fwd <- paged_decode_attention_quant_kernel
 //     (def :457, pl.pallas_call :503, body _kernel_paged_quant :175): int8
-//     pools with fp32 scale pools (P,ps,KV,1) through the same table.
+//     pools with fp32 scale pools (P,ps,KV,1) through the same table;
+//   * decode_attention_partials_fwd    <- decode_attention_partials_kernel
+//     (def :317, pl.pallas_call :369, body _kernel_partials :124): one
+//     sequence shard's block (B,Sl,KV,D) whose local position t is the
+//     global position offset + t (row b sees t <= lengths[b] - offset,
+//     and t > lengths[b] - offset - window when a window is set); it
+//     writes the UNNORMALISED fp32 online-softmax state num (B,KV,G,D),
+//     den (B,KV,G) and m (B,KV,G) that dist/collectives.py merges across
+//     shards. A row with no local position writes the neutral
+//     (0, 0, -1e30).
 // They compute what the reference computes, with the same semantics:
 //   * q (B,H,D) and out in bf16 or fp32; every input contiguous; query head
 //     h reads kv head h / G, G = H / KV (G need not be a power of two);
@@ -27,7 +36,8 @@
 //     physical page table[b, j / ps];
 //   * s = (q . k) / sqrt(D), then softcap * tanh(s / softcap) when a cap is
 //     set; an fp32 online softmax (running max, running sum, accumulator);
-//   * a row with no visible position writes 0; output in q's dtype.
+//   * a row with no visible position writes 0; output in q's dtype (the
+//     partials entry writes its fp32 state instead, unnormalised).
 //
 // Design. The Pallas kernels run a (batch, kv_head, tile) grid whose last
 // axis is sequential, keep (m, l, acc) in VMEM scratch across tiles, and
@@ -64,7 +74,11 @@
 // 132 SMs), does not overlap a tile's loads with the previous tile's
 // arithmetic (no cp.async/TMA double buffering), and runs on the CUDA
 // cores in fp32; splitting the sequence over more blocks (the partials
-// kernel's (num, den, m) merge) is later work.
+// kernel's (num, den, m) merge) is later work. The partials entry is the
+// dense bf16/fp32 loop with the lengths shifted by the shard's offset and
+// the state written out, so at one shard it does the dense kernel's
+// arithmetic bit for bit; its bound is the shard's visible K/V plus the
+// fp32 outputs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,6 +110,11 @@ struct Params {
   int window;     // <= 0: no window
   float softcap;  // <= 0: no cap
   float scale;    // 1 / sqrt(D)
+  // partials only: the block's first global position; fp32 outputs
+  int offset = 0;
+  float* num = nullptr;  // (B,KV,G,D)
+  float* den = nullptr;  // (B,KV,G)
+  float* mx = nullptr;   // (B,KV,G)
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -121,11 +140,14 @@ size_t smem_bytes(int g, int d) {
 }
 
 // T: q and output type; KVT: cache type (T, or int8_t with scales);
-// PAGED: positions resolve through the page table.
-template <typename T, typename KVT, bool PAGED, int D>
+// PAGED: positions resolve through the page table; PARTIALS: one shard's
+// block, unnormalised (num, den, m) out (dense, unquantized caches only).
+template <typename T, typename KVT, bool PAGED, int D, bool PARTIALS>
 __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
   static_assert(BLOCK_T == 64, "the softmax step gives each lane 2 columns");
   constexpr bool QUANT = std::is_same<KVT, int8_t>::value;
+  static_assert(!PARTIALS || (!PAGED && !QUANT),
+                "partials run over a dense block of q's dtype");
   static_assert(QUANT || std::is_same<KVT, T>::value,
                 "a non-int8 cache has q's dtype");
   constexpr bool RESOLVE = PAGED || QUANT;  // per-tile row/scale prelude
@@ -159,8 +181,10 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
   const KVT* v = static_cast<const KVT*>(p.v) + (long)kvh * D;
   T* o = static_cast<T*>(p.o) + ((long)b * p.H + (long)kvh * G) * D;
 
-  // visible positions of this row: [lo, hi]
-  const int len = p.lengths[b];
+  // visible positions of this row, local to the block: [lo, hi] (a
+  // shard's partials shift the length by the block's offset; a row the
+  // shard holds nothing of has hi < lo and runs no tile)
+  const int len = p.lengths[b] - (PARTIALS ? p.offset : 0);
   const int hi = min(len, p.T - 1);
   const int lo = p.window > 0 ? max(0, len - p.window + 1) : 0;
 
@@ -290,32 +314,42 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
   }
   __syncthreads();
 
-  for (int i = tid; i < G * D; i += THREADS) {
-    const float l = l_s[i / D];
-    o[i] = from_float<T>(l == 0.f ? 0.f : acc_s[i] / l);  // nothing -> 0
+  if constexpr (PARTIALS) {  // the state as it stands: nothing -> (0,0,-1e30)
+    const long head0 = ((long)b * p.KV + kvh) * G;
+    for (int i = tid; i < G * D; i += THREADS) p.num[head0 * D + i] = acc_s[i];
+    for (int g = tid; g < G; g += THREADS) {
+      p.den[head0 + g] = l_s[g];
+      p.mx[head0 + g] = m_s[g];
+    }
+  } else {
+    for (int i = tid; i < G * D; i += THREADS) {
+      const float l = l_s[i / D];
+      o[i] = from_float<T>(l == 0.f ? 0.f : acc_s[i] / l);  // nothing -> 0
+    }
   }
 }
 
-template <typename T, typename KVT, bool PAGED, int D>
+template <typename T, typename KVT, bool PAGED, int D, bool PARTIALS>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   const size_t smem = smem_bytes(p.group, D);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<T, KVT, PAGED, D>,
+      decode_kernel<T, KVT, PAGED, D, PARTIALS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(p.KV, batch);
-  decode_kernel<T, KVT, PAGED, D><<<grid, THREADS, smem, stream>>>(p);
+  decode_kernel<T, KVT, PAGED, D, PARTIALS><<<grid, THREADS, smem, stream>>>(
+      p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename KVT, bool PAGED>
+template <typename T, typename KVT, bool PAGED, bool PARTIALS = false>
 int dispatch_head_dim(const Params& p, int batch, int d, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, KVT, PAGED, 16>(p, batch, s);
-    case 32: return launch<T, KVT, PAGED, 32>(p, batch, s);
-    case 64: return launch<T, KVT, PAGED, 64>(p, batch, s);
-    case 128: return launch<T, KVT, PAGED, 128>(p, batch, s);
+    case 16: return launch<T, KVT, PAGED, 16, PARTIALS>(p, batch, s);
+    case 32: return launch<T, KVT, PAGED, 32, PARTIALS>(p, batch, s);
+    case 64: return launch<T, KVT, PAGED, 64, PARTIALS>(p, batch, s);
+    case 128: return launch<T, KVT, PAGED, 128, PARTIALS>(p, batch, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -417,6 +451,30 @@ int paged_decode_attention_quant_fwd(
              ? dispatch_head_dim<__nv_bfloat16, int8_t, true>(p, batch, d,
                                                                st)
              : dispatch_head_dim<float, int8_t, true>(p, batch, d, st);
+}
+
+// One sequence shard's block: k, v (batch, t, kv, d) of q's dtype whose
+// local position 0 is global position `offset`; lengths (batch,) int32
+// global; num (batch, kv, h / kv, d), den and m (batch, kv, h / kv)
+// float32, written unnormalised.
+int decode_attention_partials_fwd(const void* q, const void* k, const void* v,
+                                  const void* lengths, void* num, void* den,
+                                  void* m, int is_bf16, int batch, int t,
+                                  int h, int kv, int d, int offset,
+                                  int window, float softcap, void* stream) {
+  if (batch <= 0 || t <= 0 || kv <= 0 || h % kv || misaligned(k, v))
+    return (int)cudaErrorInvalidValue;
+  Params p = make_params(q, k, v, nullptr, nullptr, lengths, nullptr,
+                         nullptr, t, h, kv, d, 0, 0, 0, window, softcap);
+  p.offset = offset;
+  p.num = static_cast<float*>(num);
+  p.den = static_cast<float*>(den);
+  p.mx = static_cast<float*>(m);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_bf16
+             ? dispatch_head_dim<__nv_bfloat16, __nv_bfloat16, false, true>(
+                   p, batch, d, st)
+             : dispatch_head_dim<float, float, false, true>(p, batch, d, st);
 }
 
 }  // extern "C"

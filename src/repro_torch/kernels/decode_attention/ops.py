@@ -2,17 +2,18 @@
 
 Counterpart of ``repro.kernels.decode_attention.ops``:
 ``decode_attention`` (dense cache, bf16/fp32 or int8 with per-token
-scales) and ``paged_decode_attention`` (a shared page pool read through
-a per-row page table, bf16/fp32 or int8). The partials variant is still
-to be ported (ROADMAP Queue 2 #3). For CUDA tensors every call launches
-its CUDA kernel (``decode_attention.cu``, one entry point per variant) at
-every size: the reference's fallbacks to its oracle (``T < 64``,
+scales), ``paged_decode_attention`` (a shared page pool read through a
+per-row page table, bf16/fp32 or int8) and ``decode_attention_partials``
+(one sequence shard's unnormalised ``(num, den, m)``, the per-shard block
+of ``dist.collectives``). For CUDA tensors every call launches its CUDA
+kernel (``decode_attention.cu``, one entry point per variant) at every
+size: the reference's fallbacks to its oracle (``T < 64``,
 ``ps * Pmax < 64``) are not carried over and T is never padded. For CPU
 tensors, and only for them, the plain version (``ref.py``) runs.
 
 Each variant counts its own launches: ``launches`` (dense),
-``quant_launches`` (dense int8), ``paged_launches`` and
-``paged_quant_launches``.
+``quant_launches`` (dense int8), ``paged_launches``,
+``paged_quant_launches`` and ``partials_launches``.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ref import (
-    decode_attention_quant_ref, decode_attention_ref,
+    decode_attention_partials_ref, decode_attention_quant_ref,
+    decode_attention_ref,
     paged_decode_attention_quant_ref, paged_decode_attention_ref,
     row_lengths)
 
@@ -37,6 +39,7 @@ launches = 0
 quant_launches = 0
 paged_launches = 0
 paged_quant_launches = 0
+partials_launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (q, k, v[, k_scale, v_scale], lengths[, page_table], o, is_bf16, ...)
@@ -45,6 +48,9 @@ _ARGTYPES = {
     "decode_attention_quant_fwd": [_P] * 7 + [_I] * 7 + [_F, _P],
     "paged_decode_attention_fwd": [_P] * 6 + [_I] * 9 + [_F, _P],
     "paged_decode_attention_quant_fwd": [_P] * 8 + [_I] * 9 + [_F, _P],
+    # (q, k, v, lengths, num, den, m, is_bf16, b, t, h, kv, d, offset,
+    #  window, cap, stream)
+    "decode_attention_partials_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
 }
 
 
@@ -239,3 +245,45 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_table, *,
                 page_table.data_ptr(), out.data_ptr(), *dims)
         paged_launches += 1
     return out
+
+
+def decode_attention_partials(q, k_cache, v_cache, lengths, *,
+                              offset: int = 0,
+                              window: Optional[int] = None,
+                              softcap: Optional[float] = None):
+    """Flash-decode partials over one (sequence-shard-local) block.
+
+    q: (B,H,D); caches: (B,Sl,KV,D); the global kv position of local row t
+    is ``offset + t``; ``lengths``: () or (B,) int32, global. Returns fp32
+    ``(num (B,KV,G,D), den (B,KV,G), m (B,KV,G))``, the contract of
+    ``decode_attention_partials_ref``: row b sees local positions
+    ``t <= lengths[b] - offset`` (and ``t > lengths[b] - offset - window``
+    when windowed), which the kernel works out per row itself. The kernel
+    runs at every Sl, unpadded (the reference takes its oracle below 64).
+    """
+    _check_common(q, k_cache, v_cache, "caches (B,Sl,KV,D)", window, softcap)
+    b, h, d = q.shape
+    t, kv = k_cache.shape[1], k_cache.shape[2]
+    if k_cache.shape[0] != b:
+        raise ValueError(f"caches {tuple(k_cache.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    lengths = row_lengths(lengths, b, q.device).contiguous()
+    if _on_cpu(q, k_cache, v_cache):
+        return decode_attention_partials_ref(q, k_cache, v_cache, lengths,
+                                             offset=offset, window=window,
+                                             softcap=softcap)
+    _check_cuda_inputs(q, q.dtype, [("q", q), ("k_cache", k_cache),
+                                    ("v_cache", v_cache),
+                                    ("lengths", lengths)])
+    g = h // kv
+    num = torch.empty((b, kv, g, d), dtype=torch.float32, device=q.device)
+    den = torch.empty((b, kv, g), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, kv, g), dtype=torch.float32, device=q.device)
+    _launch("decode_attention_partials_fwd", q, q.data_ptr(),
+            k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
+            num.data_ptr(), den.data_ptr(), m.data_ptr(),
+            int(q.dtype == torch.bfloat16), b, t, h, kv, d, int(offset),
+            window or 0, float(softcap or 0.0))
+    global partials_launches
+    partials_launches += 1
+    return num, den, m

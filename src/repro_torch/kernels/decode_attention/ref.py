@@ -1,7 +1,8 @@
 """Plain torch versions of the decode-attention kernels (no custom kernel).
 
 Counterpart of ``repro.kernels.decode_attention.ref``, op for op:
-``decode_attention_ref``, ``gather_pages`` and
+``decode_attention_ref``, ``decode_attention_partials_ref`` (one sequence
+shard's unnormalised softmax state), ``gather_pages`` and
 ``paged_decode_attention_ref``, plus the int8 plain versions, which
 dequantize and then call the bf16 ones (what the reference's wrappers and
 its "xla" path do, ``ops.py:55-59,104-107``). The CPU tests run them, and
@@ -52,6 +53,43 @@ def decode_attention_ref(q, k_cache, v_cache, lengths, *,
     p = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkgt,btkd->bkgd", p, v_cache.to(ct))
     return o.reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention_partials_ref(q, k_blk, v_blk, lengths, *, offset=0,
+                                  window: Optional[int] = None,
+                                  softcap: Optional[float] = None):
+    """Flash-decode partials over one KV block (plain torch).
+
+    q: (B,H,D); k_blk/v_blk: (B,Sl,KV,D); the global kv position of local
+    row t is ``offset + t`` (one scalar per block: the sequence shard's
+    offset). ``lengths`` is () or (B,) int32. Returns fp32 ``(num
+    (B,KV,G,D), den (B,KV,G), m (B,KV,G))`` such that softmax attention
+    over the union of blocks is ``sum_i(num_i e^{m_i-M}) /
+    sum_i(den_i e^{m_i-M})`` with ``M = max_i(m_i)``. Masked
+    probabilities are zeroed, so a row with no visible position in the
+    block gives ``num = 0``, ``den = 0`` and ``m = -1e30``.
+    """
+    b, h, d = q.shape
+    kv = k_blk.shape[2]
+    g = h // kv
+    lengths = row_lengths(lengths, b, q.device)
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qg = q.reshape(b, kv, g, d).to(ct)
+    logits = torch.einsum("bkgh,btkh->bkgt", qg, k_blk.to(ct)) / (d ** 0.5)
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    pos = offset + torch.arange(k_blk.shape[1], device=q.device)
+    mask = pos[None, :] <= lengths[:, None]  # (B, Sl)
+    if window is not None:
+        mask = mask & (pos[None, :] > (lengths[:, None] - window))
+    mask = mask[:, None, None, :]
+    logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(dim=-1)  # (B,KV,G); NEG_INF on all-masked rows
+    p = torch.exp(logits - m[..., None])
+    p = torch.where(mask, p, 0.0)  # all-masked row: exp(0) = 1, zero it
+    den = p.sum(dim=-1)
+    num = torch.einsum("bkgt,btkh->bkgh", p, v_blk.to(ct))
+    return num, den, m
 
 
 def decode_attention_quant_ref(q, k_cache, v_cache, k_scale, v_scale,

@@ -15,9 +15,15 @@ KV.
                for full sequences, ``kernels/decode_attention`` for
                decode, dense, paged and int8), which take the role of the
                reference's Pallas kernels
-  * "seq_shard" is not ported yet: it raises ``NotImplementedError``
-    (ROADMAP Queue 1 #8); with an int8 or a paged cache it raises the
-    reference's ``ValueError``.
+  * "seq_shard" — decode over a KV cache whose SEQUENCE dim is cut over
+               the "model" axis of the ambient mesh
+               (``dist.collectives.seq_sharded_*``: each rank's block
+               through the partials kernel on CUDA tensors, merged with
+               one all_reduce MAX and one SUM); the caller passes how many
+               blocks the cache is cut into (``seq_shards``, the
+               ``transformer.Cache`` field). Full-sequence attention takes
+               the plain path, as the reference's does. An int8 or a
+               paged cache raises the reference's ``ValueError``.
 
 The projections are single matmuls over the flattened head dims, so q, k
 and v come out contiguous, as the kernels want them. Decode and paged
@@ -30,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist import collectives
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.quant import (dequantize_kv,
                                                         quantize_kv)
@@ -161,21 +168,17 @@ def attend_full(q, k, v, *, mask_kind: str = "causal",
         for off in range(0, s, Q_CHUNK)], dim=1)
 
 
-def _check_seq_shard(impl: str, quant: bool):
-    if impl != "seq_shard":
-        return
+def _check_seq_shard_int8(quant: bool):
     if quant:
         raise ValueError(
             "int8 KV caches do not support attn_impl='seq_shard' — use "
             "kv_dtype='bf16' with sequence sharding (see serving/README.md)")
-    raise NotImplementedError(
-        "attn_impl='seq_shard' (sequence-sharded decode) is not ported yet "
-        "(ROADMAP.md Queue 1 #8)")
 
 
 def attend_decode(q, k_cache, v_cache, lengths, *, k_scale=None,
                   v_scale=None, window: Optional[int] = None,
-                  cap: Optional[float] = None, impl: str = "xla"):
+                  cap: Optional[float] = None, impl: str = "xla",
+                  seq_shards: int = 1):
     """Single-token decode. q: (B,1,H,hd); caches: (B,Smax,KV,hd).
 
     ``lengths`` (int32, scalar or (B,)) = per-row index of the current
@@ -184,9 +187,15 @@ def attend_decode(q, k_cache, v_cache, lengths, *, k_scale=None,
     one call serves every continuous-batching slot at its own position.
     ``k_scale``/``v_scale`` ((B,Smax,KV,1) fp32, both or neither) mark the
     caches as int8: the kernel dequantizes in the tile, the plain path
-    dequantizes first.
+    dequantizes first. Under ``impl="seq_shard"`` the caches are this
+    rank's block of a cache cut into ``seq_shards`` blocks over "model"
+    (``collectives.seq_sharded_decode``).
     """
-    _check_seq_shard(impl, k_scale is not None)
+    if impl == "seq_shard":
+        _check_seq_shard_int8(k_scale is not None)
+        return collectives.seq_sharded_decode(
+            q, k_cache, v_cache, lengths, window=window, cap=cap,
+            seq_shards=seq_shards)
     lengths = row_lengths(lengths, q.shape[0], q.device)
     if impl == "pallas":
         return da_ops.decode_attention(
@@ -249,7 +258,7 @@ def _project_decode(cfg: ModelConfig, p, x, lengths):
 
 def attn_decode_layer(cfg: ModelConfig, p, x, k_cache, v_cache, lengths, *,
                       mixer: str, impl: str = "xla", k_scale=None,
-                      v_scale=None):
+                      v_scale=None, seq_shards: int = 1):
     """Decode sublayer: project, write the new k/v at each row's
     ``lengths[b]`` (in place), attend.
 
@@ -260,13 +269,22 @@ def attn_decode_layer(cfg: ModelConfig, p, x, k_cache, v_cache, lengths, *,
     ((B,Smax,KV,1) fp32) the caches are int8: the new token's post-RoPE
     k/v are quantized per token, values and scales are written at the
     same clamped position, and the return is the 5-tuple
-    (y, k_cache, v_cache, k_scale, v_scale).
+    (y, k_cache, v_cache, k_scale, v_scale). Under ``impl="seq_shard"``
+    the caches are this rank's block of a cache cut into ``seq_shards``
+    blocks over "model": the write lands only in the block that owns the
+    row's position (``collectives.seq_sharded_write_decode``: a position
+    past the cache's end is written nowhere, where the dense path clamps).
     """
     quant = k_scale is not None
-    _check_seq_shard(impl, quant)
     lengths = row_lengths(lengths, x.shape[0], x.device)
     q, k, v = _project_decode(cfg, p, x, lengths)
     window = cfg.window if mixer == "attn_local" else None
+    if impl == "seq_shard":
+        _check_seq_shard_int8(quant)
+        o, k_cache, v_cache = collectives.seq_sharded_write_decode(
+            q, k, v, k_cache, v_cache, lengths, window=window,
+            cap=cfg.attn_softcap, seq_shards=seq_shards)
+        return out_proj(p, o), k_cache, v_cache
     if quant:
         k, ks_new = quantize_kv(k)  # (B,1,KV,hd) int8, (B,1,KV,1) fp32
         v, vs_new = quantize_kv(v)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import seq_blocks
 from repro_torch.models.common import ModelConfig, is_axspec
 from repro_torch.models.transformer import Cache, PagedCache, lm_specs
 from repro_torch.tree import tree_leaves_with_path, tree_map_with_path
@@ -95,7 +96,8 @@ def _cache_layers(ref_layers, cfg: ModelConfig, device, layout: str):
     return tuple(layers)
 
 
-def cache_from_reference(cache_np, cfg: ModelConfig, device="cuda") -> Cache:
+def cache_from_reference(cache_np, cfg: ModelConfig, device="cuda",
+                         mesh=None) -> Cache:
     """Reference dense decode cache -> the port's ``Cache`` on ``device``.
 
     ``cache_np`` has the reference ``Cache``'s fields with numpy leaves:
@@ -103,10 +105,23 @@ def cache_from_reference(cache_np, cfg: ModelConfig, device="cuda") -> Cache:
     stacked (G, B, T, KV, hd), plus ``k_scale``/``v_scale``
     (G, B, T, KV, 1) beside int8 k/v) and ``lengths`` (B,). Layer ``l`` of
     the port is group ``l // period`` of pattern position ``l % period``.
+
+    With a ``mesh`` (``dist.context.Mesh``) it returns this rank's block
+    of the sequence as ``dist.sharding.seq_blocks`` cuts it: one of M
+    equal blocks over "model" (``Cache.seq_shards`` = M), or the whole
+    cache where M does not divide T.
     """
-    return Cache(layers=_cache_layers(cache_np.layers, cfg, device,
-                                      "B, T, KV, hd"),
-                 lengths=_to_tensor(cache_np.lengths, torch.int32, device))
+    layers = _cache_layers(cache_np.layers, cfg, device, "B, T, KV, hd")
+    t = layers[0]["k"].shape[1] if layers else 0
+    shards, index = seq_blocks(mesh, t)
+    if shards > 1:
+        block = t // shards
+        lo = index * block
+        layers = tuple({n: x[:, lo:lo + block].contiguous()
+                        for n, x in layer.items()} for layer in layers)
+    return Cache(layers=layers,
+                 lengths=_to_tensor(cache_np.lengths, torch.int32, device),
+                 seq_shards=shards)
 
 
 def paged_cache_from_reference(cache_np, cfg: ModelConfig,

@@ -39,12 +39,15 @@ class Model:
                                    embeddings=batch.get("embeddings"))
 
     def prefill(self, run: RunConfig, params, batch,
-                max_len: Optional[int] = None):
-        """batch dict -> (last-token logits (B,V), populated Cache)."""
+                max_len: Optional[int] = None, seq_shards: int = 1,
+                shard: int = 0):
+        """batch dict -> (last-token logits (B,V), populated Cache; block
+        ``shard`` of ``seq_shards`` along the sequence)."""
         return transformer.prefill(self.cfg, run, params,
                                    tokens=batch.get("tokens"),
                                    embeddings=batch.get("embeddings"),
-                                   max_len=max_len)
+                                   max_len=max_len, seq_shards=seq_shards,
+                                   shard=shard)
 
     def decode_step(self, run: RunConfig, params, cache, batch):
         """One RAGGED decode step on a dense or paged cache: row b
@@ -56,14 +59,16 @@ class Model:
                                        embedding=batch.get("embedding"))
 
     # -- cache ----------------------------------------------------------
-    def cache_specs(self, batch: int, max_len: int, kv_dtype: str = "bf16"):
+    def cache_specs(self, batch: int, max_len: int, kv_dtype: str = "bf16",
+                    seq_shards: int = 1):
         """The cache on the meta device (shapes and dtypes only)."""
-        return transformer.cache_specs(self.cfg, batch, max_len, kv_dtype)
+        return transformer.cache_specs(self.cfg, batch, max_len, kv_dtype,
+                                       seq_shards=seq_shards)
 
     def init_cache(self, batch: int, max_len: int, kv_dtype: str = "bf16",
-                   device="cuda"):
+                   device="cuda", seq_shards: int = 1):
         return transformer.init_cache(self.cfg, batch, max_len, kv_dtype,
-                                      device=device)
+                                      device=device, seq_shards=seq_shards)
 
     def paged_cache_specs(self, batch: int, n_pages: int, page_size: int,
                           max_pages: int, kv_dtype: str = "bf16"):

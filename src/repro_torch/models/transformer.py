@@ -19,6 +19,12 @@ Entry points:
                    donates it)
   * extend_paged — chunked prefill-with-history of one paged row, in place
 
+Under a sequence-sharded mesh (``serving.Engine(mesh=, seq_shard=True)``)
+a dense cache holds one rank's block of every layer's sequence dim,
+(B, max_len / M, KV, hd) for M blocks over "model", with ``lengths``
+global (``Cache.seq_shards`` = M); prefill computes the whole prompt on
+every rank and keeps the rank's slice of its K/V.
+
 Ported so far: attention mixers ("attn", "attn_local") with dense MLPs,
 and bf16 or int8 KV in dense or paged caches. SSM mixers, MoE MLPs and
 sandwich norms raise ``NotImplementedError`` (Queue 1 #7).
@@ -185,10 +191,16 @@ class Cache:
     decode depths (ragged continuous batching). A free row is a row whose
     length the serving layer reset to 0; the per-row masks make it inert
     until the next admission overwrites the row.
+
+    ``seq_shards`` is the number of blocks the sequence dim is cut into
+    over the mesh's "model" axis: with M > 1 the KV leaves hold this
+    rank's positions [r * T / M, (r + 1) * T / M) (T the whole cache's
+    capacity) and ``lengths`` stay global.
     """
 
     layers: tuple  # per layer: {"k": (B,T,KV,hd), "v": (B,T,KV,hd)}
     lengths: torch.Tensor  # (B,) int32
+    seq_shards: int = 1
 
     def tensors(self):
         """Every tensor of the cache: k and v of each layer, then lengths."""
@@ -217,25 +229,37 @@ def _kv_layer(shape, kv_dtype: str, device) -> dict:
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
-                kv_dtype: str = "bf16") -> Cache:
+                kv_dtype: str = "bf16", seq_shards: int = 1) -> Cache:
     """The cache's shapes and dtypes, on the meta device (allocates
     nothing): the counterpart of the reference's ShapeDtypeStruct tree.
     ``kv_dtype="int8"`` stores int8 k/v and per-token fp32
     ``k_scale``/``v_scale`` of shape (B, max_len, KV, 1)."""
-    return init_cache(cfg, batch, max_len, kv_dtype, device="meta")
+    return init_cache(cfg, batch, max_len, kv_dtype, device="meta",
+                      seq_shards=seq_shards)
+
+
+def _block_len(max_len: int, seq_shards: int) -> int:
+    if seq_shards < 1 or max_len % seq_shards:
+        raise ValueError(f"a cache of {max_len} positions does not cut "
+                         f"into {seq_shards} equal sequence blocks")
+    return max_len // seq_shards
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               kv_dtype: str = "bf16", device="cuda") -> Cache:
-    """An empty cache (zeros, all lengths 0) on ``device``."""
+               kv_dtype: str = "bf16", device="cuda",
+               seq_shards: int = 1) -> Cache:
+    """An empty cache (zeros, all lengths 0) on ``device``; with
+    ``seq_shards`` = M > 1, one rank's block of max_len / M positions."""
     _check_kv_dtype(kv_dtype)
     for spec in cfg.pattern:
         _check_ported(cfg, spec)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (batch, _block_len(max_len, seq_shards), cfg.n_kv_heads,
+             cfg.head_dim)
     return Cache(layers=tuple(_kv_layer(shape, kv_dtype, device)
                               for _ in range(cfg.n_layers)),
                  lengths=torch.zeros(batch, dtype=torch.int32,
-                                     device=device))
+                                     device=device),
+                 seq_shards=seq_shards)
 
 
 @dataclasses.dataclass
@@ -311,11 +335,14 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
 
 
 def prefill(cfg: ModelConfig, run: RunConfig, params, *, tokens=None,
-            embeddings=None, max_len: Optional[int] = None):
+            embeddings=None, max_len: Optional[int] = None,
+            seq_shards: int = 1, shard: int = 0):
     """Returns (last-token logits (B,V), populated Cache of capacity
     ``max_len``, default the prompt length + ``run.cache_pad``). With
     ``run.kv_dtype="int8"`` the cache holds each layer's k/v quantized
-    per token (int8 values, fp32 scales)."""
+    per token (int8 values, fp32 scales). With ``seq_shards`` = M > 1 the
+    cache is block ``shard`` of M along the sequence: positions
+    [shard * max_len / M, (shard + 1) * max_len / M) of every layer."""
     _check_kv_dtype(run.kv_dtype)
     ref = tokens if tokens is not None else embeddings
     b, s = ref.shape[0], ref.shape[1]
@@ -324,6 +351,8 @@ def prefill(cfg: ModelConfig, run: RunConfig, params, *, tokens=None,
     if max_len < s:
         raise ValueError(
             f"max_len={max_len} cannot hold the {s}-token prompt")
+    block = _block_len(max_len, seq_shards)
+    lo = shard * block
     positions = torch.arange(s, device=ref.device)[None, :]
     x = _embed_in(cfg, params, tokens, embeddings, positions)
     layers = []
@@ -335,17 +364,18 @@ def prefill(cfg: ModelConfig, run: RunConfig, params, *, tokens=None,
         if run.kv_dtype == "int8":
             kq, ks = quantize_kv(k)
             vq, vs = quantize_kv(v)
-            layers.append({"k": F.pad(kq, pad), "v": F.pad(vq, pad),
-                           "k_scale": F.pad(ks, pad),
-                           "v_scale": F.pad(vs, pad)})
+            leaves = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
         else:
-            layers.append({"k": F.pad(k.to(torch.bfloat16), pad),
-                           "v": F.pad(v.to(torch.bfloat16), pad)})
+            leaves = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+        # this block's positions, zeros past the prompt
+        layers.append({n: F.pad(t, pad)[:, lo:lo + block].contiguous()
+                       for n, t in leaves.items()})
     x_last = apply_norm(cfg, params["final_norm"], x[:, -1])
     logits = _lm_head(cfg, params, x_last)
     return logits, Cache(layers=tuple(layers),
                          lengths=torch.full((b,), s, dtype=torch.int32,
-                                            device=ref.device))
+                                            device=ref.device),
+                         seq_shards=seq_shards)
 
 
 # ---------------------------------------------------------------------------
@@ -367,7 +397,9 @@ def decode_step(cfg: ModelConfig, run: RunConfig, params, cache,
     its write lands on the last position (``attention.write_kv_rows``)
     and it attends every position; on a paged cache a free row's zeroed
     table routes its write to the null page 0. The serving layer discards
-    free rows' tokens.
+    free rows' tokens. Under ``run.attn_impl="seq_shard"`` each layer's
+    write and attention go through ``dist.collectives`` over the cache's
+    ``seq_shards`` blocks, ``lengths`` unchanged (global).
     """
     _check_kv_dtype(run.kv_dtype)
     paged = isinstance(cache, PagedCache)
@@ -387,7 +419,8 @@ def decode_step(cfg: ModelConfig, run: RunConfig, params, cache,
         else:
             h = attn_lib.attn_decode_layer(
                 cfg, p["attn"], h, c["k"], c["v"], lengths,
-                mixer=spec.mixer, impl=run.attn_impl, **scales)[0]
+                mixer=spec.mixer, impl=run.attn_impl,
+                seq_shards=cache.seq_shards, **scales)[0]
         x = _mlp_residual(cfg, spec, p, x + h)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = _lm_head(cfg, params, x[:, 0])

@@ -1,6 +1,10 @@
 """Continuous batching: slot-based admission over a SHARED batched cache.
 
-Counterpart of ``repro.serving.batching`` on one device (no mesh). A fixed
+Counterpart of ``repro.serving.batching``, on one device or, through a
+mesh-aware ``Engine(mesh=, seq_shard=True)``, on every rank of a
+sequence-sharded mesh: each rank runs the same batcher over its own block
+of the shared cache and takes the same decisions, since the merged
+logits, and so the tokens, are the same on every rank. A fixed
 number of decode slots map onto the rows of ONE batched KV cache; the
 cache's per-row ``lengths`` make the batch ragged, so each scheduling
 round issues exactly **one** ``Engine.decode`` call however many slots
@@ -148,8 +152,9 @@ class ContinuousBatcher:
     ``batched=False``: per-slot mode — each slot owns a batch-1 cache and
     every active slot costs one greedy decode call per round.
 
-    ``paged=True`` (batched mode only: with ``batched=False`` it falls back
-    to the dense cache, as the reference does): slots are rows of a
+    ``paged=True`` (batched mode without a mesh only: with
+    ``batched=False`` or under a mesh it falls back to the dense cache, as
+    the reference does): slots are rows of a
     block-PAGED cache of ``page_size``-token pages. A
     ``serving.paged.PageAllocator`` maps each row's logical pages onto a
     shared pool of ``n_pages`` physical pages (default: the worst case,
@@ -210,8 +215,12 @@ class ContinuousBatcher:
         self._bucket_s = {b: 0.0 for b in BUCKETS}
         self._gen: Optional[torch.Generator] = None
         self.rejected: List[Request] = []
-        if self.paged and not self.batched:
-            self.paged = False  # the per-slot path keeps its dense caches
+        if self.paged and (self.engine.mesh is not None
+                           or not self.batched):
+            # paged serving is single-host batched mode only: the per-slot
+            # path keeps its dense caches, and a mesh (seq_shard needs a
+            # contiguous sequence dim to cut) the dense shared cache
+            self.paged = False
         self.allocator: Optional[PageAllocator] = None
         self._host_len: Dict[int, int] = {}   # paged: row -> current length
 

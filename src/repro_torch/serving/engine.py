@@ -1,9 +1,23 @@
-"""Inference engine on one device: classify / prefill / decode / generate.
+"""Inference engine: classify / prefill / decode / generate.
 
-Counterpart of ``repro.serving.engine.Engine`` without a mesh (the port
-has no ``dist/`` yet, ROADMAP Queue 1 #8): the compute payload that the
-paper's "serverless functions" invoke (``core/worker.py``) and the device
-half of continuous batching (``serving/batching.py``).
+Counterpart of ``repro.serving.engine.Engine``: the compute payload that
+the paper's "serverless functions" invoke (``core/worker.py``) and the
+device half of continuous batching (``serving/batching.py``).
+
+Mesh-aware, as the reference: constructed with a ``mesh``
+(``launch.mesh.make_host_mesh``, one process per rank) every entry point
+runs under ``dist.mesh_context(mesh)``; ``seq_shard=True`` forces
+``attn_impl="seq_shard"`` and every dense cache the engine allocates
+holds this rank's block of the sequence dim (``dist.sharding.seq_blocks``),
+so decode attention merges the ranks' partials (``dist.collectives``) and
+the cache never gathers. Every rank holds the params whole and computes
+the whole logits: tensor-parallel params, and with them a "model" axis
+without ``seq_shard``, wait for a later slice, as does a "data" axis
+larger than 1 (both raise ``NotImplementedError``, ROADMAP Queue 1 #8).
+The reference's guards hold under a mesh: int8 KV raises and paged caches
+raise. Fused sampling runs the sampling kernel under a mesh too: the
+reference takes its plain epilogue there only because its logits arrive
+split over the vocabulary, which the port's never are.
 
 The shared-batched-cache admission path (``new_cache`` -> ``prefill_into``
 -> ``decode`` -> ``free_row``) serves continuous batching: one
@@ -27,11 +41,14 @@ compiled executable, but the counts read the same as the reference's
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.dist import context as dctx
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels.decode_attention.fused_sampling import fused_sample
 from repro_torch.kernels.decode_attention.quant import KV_DTYPES
 from repro_torch.models.common import RunConfig
@@ -57,7 +74,8 @@ def _shape_key(tree) -> tuple:
     shapes coincide."""
     if isinstance(tree, (Cache, PagedCache)):
         head = (("PagedCache", tree.page_size)
-                if isinstance(tree, PagedCache) else ("Cache",))
+                if isinstance(tree, PagedCache)
+                else ("Cache", tree.seq_shards))
         names = tuple(tuple(layer) for layer in tree.layers)
         return head + (names,) + tuple(_leaf_key(t)
                                        for t in tree.tensors())
@@ -75,6 +93,22 @@ def _check_prompt(s: int, max_len: int):
             f"{max_len} — allocate new_cache with a larger max_len")
 
 
+def _check_mesh(mesh, seq_shard: bool):
+    """The layouts this slice serves: "model" with ``seq_shard``, and no
+    data axis larger than 1."""
+    for axis in dctx.dp_axes(mesh):
+        if dctx.axis_size(axis, mesh) > 1:
+            raise NotImplementedError(
+                f"a {axis!r} axis of {dctx.axis_size(axis, mesh)} ranks "
+                f"(batch-sharded rows across ranks) is not ported yet "
+                f"(ROADMAP.md Queue 1 #8)")
+    if dctx.axis_size("model", mesh) > 1 and not seq_shard:
+        raise NotImplementedError(
+            "a 'model' axis without seq_shard needs tensor-parallel params "
+            "and kv-head-sharded caches, not ported yet (ROADMAP.md Queue 1 "
+            "#8); serve it with seq_shard=True")
+
+
 @dataclasses.dataclass
 class Engine:
     """Serving engine over one built model.
@@ -83,26 +117,44 @@ class Engine:
       model: ``models.build(cfg)`` facade.
       run: runtime knobs; ``run.attn_impl="pallas"`` runs attention
         through the hand-written CUDA kernels on a CUDA device (CPU
-        tensors take their plain versions). ``run.kv_dtype="int8"``
-        stores every cache the engine allocates as int8 K/V with
-        per-token fp32 scales (decoder-only models; there is no mesh yet,
-        so the reference's under-a-mesh guard has no counterpart).
+        tensors take their plain versions); it is forced to
+        ``"seq_shard"`` when ``seq_shard=True`` under a mesh.
+        ``run.kv_dtype="int8"`` stores every cache the engine allocates as
+        int8 K/V with per-token fp32 scales (decoder-only models, no
+        mesh).
       device: where params, caches and activations live (``"cuda"``
-        unless the caller asks for the CPU).
+        unless the caller asks for the CPU); under a mesh, this rank's.
+      mesh: optional ``dist.context.Mesh`` of the running ranks; every
+        entry point runs under ``dist.mesh_context(mesh)``.
+      seq_shard: cut the KV cache's SEQUENCE dim over the "model" axis
+        (the layout ``dist.collectives.seq_sharded_*`` consumes).
     """
 
     model: Model
     run: RunConfig = RunConfig()
     device: Any = "cuda"
+    mesh: Optional[dctx.Mesh] = None
+    seq_shard: bool = False
 
     def __post_init__(self):
         if self.run.kv_dtype not in KV_DTYPES:
             raise ValueError(
                 f"kv_dtype={self.run.kv_dtype!r} not in {KV_DTYPES}")
-        if self.run.kv_dtype == "int8" and self.model.cfg.encdec:
-            raise ValueError(
-                "encoder-decoder models have no int8 KV layout "
-                "(cross-attn caches stay bf16)")
+        if self.run.kv_dtype == "int8":
+            if self.mesh is not None:
+                raise ValueError(
+                    "kv_dtype='int8' is single-host only — the sharding "
+                    "planner has no layout for the scale leaves (see "
+                    "serving/README.md); use kv_dtype='bf16' under a mesh")
+            if self.model.cfg.encdec:
+                raise ValueError(
+                    "encoder-decoder models have no int8 KV layout "
+                    "(cross-attn caches stay bf16)")
+        if self.mesh is not None:
+            _check_mesh(self.mesh, self.seq_shard)
+            if self.seq_shard and self.run.attn_impl != "seq_shard":
+                self.run = dataclasses.replace(self.run,
+                                               attn_impl="seq_shard")
         self.device = torch.device(self.device)
         self._exec: Dict[Any, Any] = {}
         self.compile_count = 0
@@ -110,6 +162,28 @@ class Engine:
     def place_params(self, params):
         """``params`` moved onto the engine's device."""
         return tree_map(lambda t: t.to(self.device), params)
+
+    # ------------------------------------------------------------------
+    # Mesh plumbing
+    # ------------------------------------------------------------------
+
+    def _ctx(self):
+        """The ambient-mesh context every entry point runs under."""
+        return (dctx.mesh_context(self.mesh) if self.mesh is not None
+                else nullcontext())
+
+    def shard_params(self, params):
+        """``params`` placed for this rank: on the engine's device, whole
+        (no tensor-parallel layout yet)."""
+        return self.place_params(params)
+
+    def _seq_block(self, max_len: int) -> Tuple[int, int]:
+        """(blocks the sequence of a ``max_len`` cache is cut into, this
+        rank's block): ``dist.sharding.seq_blocks`` under a seq-shard mesh,
+        else (1, 0)."""
+        if not self.seq_shard:
+            return 1, 0
+        return shd.seq_blocks(self.mesh, max_len)
 
     def _tokens_in(self, tokens) -> torch.Tensor:
         """Token ids (array or tensor) as a long tensor on the device;
@@ -148,9 +222,12 @@ class Engine:
         return _classify
 
     def _prefill_fn(self, max_len: int):
+        shards, shard = self._seq_block(max_len)
+
         def _prefill(params, batch):
             return self.model.prefill(self.run, params, batch,
-                                      max_len=max_len)
+                                      max_len=max_len, seq_shards=shards,
+                                      shard=shard)
         return _prefill
 
     def _decode_fn(self, sample_kw: Optional[dict] = None):
@@ -162,11 +239,19 @@ class Engine:
             return logits, cache
         return _decode
 
-    def _prefill_into_fn(self, max_len: int,
+    def _prefill_into_fn(self, cache: Cache, max_len: int,
                          sample_kw: Optional[dict] = None):
+        shards = cache.seq_shards
+        shard = 0
+        if shards > 1:  # a rank's block of the whole capacity: prefill it
+            max_len = cache.layers[0]["k"].shape[1] * shards
+            shards, shard = self._seq_block(max_len)
+
         def _prefill_into(params, cache, batch, row, generator=None):
             logits, small = self.model.prefill(self.run, params, batch,
-                                               max_len=max_len)
+                                               max_len=max_len,
+                                               seq_shards=shards,
+                                               shard=shard)
             for big, sm in zip(cache.layers, small.layers):
                 for name, t in sm.items():
                     big[name][row, :t.shape[1]].copy_(t[0])
@@ -195,7 +280,7 @@ class Engine:
         device_tokens = self._tokens_in(tokens)
         fn = self._get_exec("classify", _shape_key(tokens),
                             self._classify_fn)
-        with torch.inference_mode():
+        with self._ctx(), torch.inference_mode():
             return fn(params, device_tokens).cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -205,7 +290,8 @@ class Engine:
     def prefill(self, params, tokens, *, max_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Cache]:
         """tokens (B, S) -> (last-token logits (B, V), populated cache of
-        capacity ``max_len``, default S + ``run.cache_pad``)."""
+        capacity ``max_len``, default S + ``run.cache_pad``; under a
+        seq-shard mesh, this rank's block of it)."""
         tokens = self._tokens_in(tokens)
         b, s = tokens.shape
         if max_len is None:
@@ -214,7 +300,7 @@ class Engine:
         batch = {"tokens": tokens}
         fn = self._get_exec("prefill", (_shape_key(batch), max_len),
                             lambda: self._prefill_fn(max_len))
-        with torch.no_grad():
+        with self._ctx(), torch.no_grad():
             return fn(params, batch)
 
     def decode(self, params, cache, token) -> Tuple[torch.Tensor, Any]:
@@ -224,7 +310,7 @@ class Engine:
         cache is updated in place."""
         token = self._tokens_in(token)
         fn = self._get_exec("decode", _shape_key(cache), self._decode_fn)
-        with torch.no_grad():
+        with self._ctx(), torch.no_grad():
             return fn(params, cache, token)
 
     # ------------------------------------------------------------------
@@ -235,22 +321,36 @@ class Engine:
         """Allocate an EMPTY shared batched decode cache (all lengths 0)
         on the engine's device: the backing store of continuous batching,
         admitted into by :meth:`prefill_into`, freed by :meth:`free_row`.
+        Under a seq-shard mesh it is this rank's block of the planned
+        layout: no rank ever holds the whole cache.
         """
         if batch <= 0 or max_len <= 0:
             raise ValueError(
                 f"new_cache needs positive batch/max_len, got "
                 f"batch={batch} max_len={max_len}")
-        return self.model.init_cache(batch, max_len,
-                                     kv_dtype=self.run.kv_dtype,
-                                     device=self.device)
+        shards = self._seq_block(max_len)[0]
+
+        def alloc():
+            return self.model.init_cache(batch, max_len,
+                                         kv_dtype=self.run.kv_dtype,
+                                         device=self.device,
+                                         seq_shards=shards)
+        if self.mesh is None:
+            return alloc()
+        # under a mesh the reference allocates through a pinned executable:
+        # one more shape bucket, counted as it counts it
+        specs = self.model.cache_specs(batch, max_len, self.run.kv_dtype,
+                                       seq_shards=shards)
+        return self._get_exec("new_cache", _shape_key(specs),
+                              lambda: alloc)()
 
     def _row_len(self, cache: Cache, s: int, max_len: Optional[int]) -> int:
         """The prefill length of an admission: ``max_len``, default the
-        shared cache's capacity (axis 1 of the port's per-layer
-        (B, T, KV, hd) leaves, where the reference reads axis 2 of its
-        stacked leaves)."""
-        cap = (cache.layers[0]["k"].shape[1] if cache.layers
-               else s + self.run.cache_pad)
+        shared cache's whole capacity (axis 1 of the port's per-layer
+        (B, T, KV, hd) leaves times its sequence blocks, where the
+        reference reads axis 2 of its stacked leaves)."""
+        cap = (cache.layers[0]["k"].shape[1] * cache.seq_shards
+               if cache.layers else s + self.run.cache_pad)
         max_len = cap if max_len is None else max_len
         if max_len > cap:
             raise ValueError(f"max_len={max_len} exceeds the shared "
@@ -275,8 +375,8 @@ class Engine:
         batch = {"tokens": tokens}
         fn = self._get_exec(
             "prefill_into", (_shape_key(cache), _shape_key(batch)),
-            lambda: self._prefill_into_fn(max_len))
-        with torch.no_grad():
+            lambda: self._prefill_into_fn(cache, max_len))
+        with self._ctx(), torch.no_grad():
             return fn(params, cache, batch, int(row))
 
     def _free_fn(self):
@@ -314,7 +414,11 @@ class Engine:
         """Allocate an EMPTY paged cache on the engine's device: zeroed
         page pools (page 0 = reserved null page), all-null page tables,
         all lengths 0; int8 pools with scale pools under
-        ``kv_dtype="int8"``."""
+        ``kv_dtype="int8"``. Single-host only: raises under a mesh."""
+        if self.mesh is not None:
+            raise ValueError(
+                "paged KV caches are single-host only — use new_cache "
+                "under a mesh (see serving/README.md)")
         if min(batch, n_pages, page_size, max_pages) <= 0:
             raise ValueError("paged cache dims must be positive")
         return self.model.init_paged_cache(batch, n_pages, page_size,
@@ -433,7 +537,7 @@ class Engine:
             "decode_sample", (_shape_key(cache), (temperature, top_k,
                                                   top_p)),
             lambda: self._decode_fn(sample_kw=kw))
-        with torch.no_grad():
+        with self._ctx(), torch.no_grad():
             return fn(params, cache, token, generator)
 
     def prefill_into_sample(self, params, cache: Cache, row: int, tokens,
@@ -454,8 +558,8 @@ class Engine:
             "prefill_into_sample",
             (_shape_key(cache), _shape_key(batch),
              (temperature, top_k, top_p)),
-            lambda: self._prefill_into_fn(max_len, sample_kw=kw))
-        with torch.no_grad():
+            lambda: self._prefill_into_fn(cache, max_len, sample_kw=kw))
+        with self._ctx(), torch.no_grad():
             return fn(params, cache, batch, int(row), generator)
 
     def extend_row_sample(self, params, cache: PagedCache, row: int, tokens,

@@ -377,9 +377,11 @@ def test_batcher_on_token_contract_and_cancel(qwen):
 
 
 def test_unported_variants_raise(qwen):
-    """Sequence-sharded decode (Queue 1 #8) is still to be ported; int8 and
-    paged KV caches (Queue 1 #5) are ported and no longer raise
-    (tests/test_torch_kv_int8.py, tests/test_torch_paged_cache.py)."""
+    """Int8 and paged KV caches (Queue 1 #5) and sequence-sharded decode
+    (Queue 1 #8) are ported and no longer raise
+    (tests/test_torch_kv_int8.py, tests/test_torch_paged_cache.py,
+    tests/test_torch_seq_shard.py); seq_shard over an int8 cache keeps the
+    reference's ValueError."""
     _, eng = _engines(qwen)
     with pytest.raises(ValueError, match="batched=True"):
         ContinuousBatcher(eng, qwen["params"], fused_sampling=True,
@@ -390,8 +392,12 @@ def test_unported_variants_raise(qwen):
     assert specs.layers[0]["k"].dtype == torch.int8
     q = torch.zeros(1, 1, 4, 16)
     kv = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        attention.attend_decode(q, kv, kv, 0, impl="seq_shard")
+    out = attention.attend_decode(q, kv, kv, 0, impl="seq_shard")
+    assert out.shape == q.shape and not out.any()
+    with pytest.raises(ValueError, match="seq_shard"):
+        attention.attend_decode(q, kv.to(torch.int8), kv.to(torch.int8), 0,
+                                k_scale=kv[..., :1], v_scale=kv[..., :1],
+                                impl="seq_shard")
 
 
 def test_cache_specs_allocate_nothing(qwen):

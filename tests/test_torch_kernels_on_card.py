@@ -16,7 +16,8 @@ from repro_torch.kernels.decode_attention import fused_sampling as fs
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.quant import quantize_kv
 from repro_torch.kernels.decode_attention.ref import (
-    decode_attention_quant_ref, decode_attention_ref,
+    decode_attention_partials_ref, decode_attention_quant_ref,
+    decode_attention_ref,
     paged_decode_attention_quant_ref, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -375,3 +376,108 @@ def test_engine_paged_and_int8_decode_run_the_kernels_on_card(cuda,
         want, _ = plain.decode(params, caches[1], token)
         assert toks.shape == (3,) and toks.dtype == torch.int32
         assert (got - want).abs().max().item() <= 0.05
+
+
+# partials decode attention over sequence shards: (b, h, kv, d, t,
+# lengths, window, cap), each cache cut into M = 1, 2 and 4 shards (the
+# chip smoke's (a4) edge cases at a smaller T): lengths 0, Sl - 1, Sl,
+# T - 1 and past T; rows a shard sees nothing of; a window crossing shard
+# boundaries; softcap; MHA; GQA 7
+PARTIALS_CASES = [
+    (8, 28, 4, 128, 256, (0, 63, 64, 127, 128, 255, 256, 900), None, None),
+    (4, 28, 4, 128, 256, (40, 100, 150, 255), 48, None),
+    (4, 28, 4, 128, 256, (10, 130, 255, 400), None, 30.0),
+    (4, 12, 12, 64, 128, (0, 127, 70, 17), None, None),
+    (1, 28, 4, 128, 256, (200,), 100, 20.0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PARTIALS_CASES,
+                         ids=[str(c) for c in PARTIALS_CASES])
+@pytest.mark.parametrize("shards", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_partials_kernel_matches_ref_on_card(cuda, case, shards, dtype):
+    """Every shard's (num, den, m) against the plain version (fp32 on both
+    sides: 1e-4 of the largest value); a shard a row sees nothing of gives
+    exactly (0, 0, -1e30); the merged shards equal the dense decode kernel
+    on the whole cache."""
+    b, h, kv, d, t, lengths, window, cap = case
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(b, h, d, generator=g, device=cuda, dtype=dtype)
+    k, v = (torch.randn(b, t, kv, d, generator=g, device=cuda, dtype=dtype)
+            for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    sl = t // shards
+    parts = []
+    for r in range(shards):
+        kb, vb = (x[:, r * sl:(r + 1) * sl].contiguous() for x in (k, v))
+        before = da_ops.partials_launches
+        got = da_ops.decode_attention_partials(q, kb, vb, lens,
+                                               offset=r * sl, window=window,
+                                               softcap=cap)
+        torch.cuda.synchronize()
+        assert da_ops.partials_launches == before + 1
+        want = decode_attention_partials_ref(q, kb, vb, lens, offset=r * sl,
+                                             window=window, softcap=cap)
+        for x, y in zip(got, want):
+            assert x.dtype == torch.float32 and x.shape == y.shape
+            assert (x - y).abs().max().item() <= 1e-4 * max(
+                1.0, y.abs().max().item())
+        local = lens.long() - r * sl
+        lo = (torch.zeros_like(local) if window is None
+              else torch.clamp(local - window + 1, min=0))
+        for row in torch.nonzero(torch.clamp(local, max=sl - 1) < lo
+                                 ).flatten().tolist():
+            assert not got[0][row].any() and not got[1][row].any()
+            assert (got[2][row] == -1e30).all()
+        parts.append(got)
+    m_g = torch.stack([m for _, _, m in parts]).amax(0)
+    num = sum(n * torch.exp(m - m_g)[..., None] for n, _, m in parts)
+    den = sum(dn * torch.exp(m - m_g) for _, dn, m in parts)
+    merged = (num / torch.clamp(den, min=1e-30)[..., None]).reshape(
+        q.shape).to(dtype)
+    dense = da_ops.decode_attention(q, k, v, lens, window=window,
+                                    softcap=cap)
+    torch.testing.assert_close(merged.float(), dense.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_seq_shard_engine_decode_matches_dense_kernel_on_card(cuda):
+    """A one-rank ``Engine(mesh, seq_shard=True)`` decode round over the
+    dense kernel engine's own cache: the partials kernel in every layer,
+    no other attention kernel, the sampling kernel once for the sampled
+    round, and the dense kernel's logits (at one shard the partials loop
+    is the dense kernel's)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = configs.smoke("qwen2-7b")
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    dense = Engine(model, RunConfig(attn_impl="pallas"), device=cuda)
+    seq = Engine(model, RunConfig(), device=cuda,
+                 mesh=make_host_mesh((1, 1)), seq_shard=True)
+    cache = dense.new_cache(3, 80)
+    for row, n in ((0, 5), (2, 70)):
+        tokens = torch.arange(n, device=cuda)[None] % cfg.vocab_size
+        _, cache = dense.prefill_into(params, cache, row, tokens)
+    copy = seq.new_cache(3, 80)
+    for big, small in zip(copy.layers, cache.layers):
+        for name in big:
+            big[name].copy_(small[name])
+    copy.lengths.copy_(cache.lengths)
+    token = torch.tensor([[1], [2], [3]], device=cuda)
+    before = (fa_ops.launches, da_ops.launches, da_ops.partials_launches,
+              fs.launches)
+    got, _ = seq.decode(params, copy, token)
+    toks, _ = seq.decode_sample(params, copy, token,
+                                torch.Generator(device=cuda),
+                                temperature=0.8, top_k=5)
+    torch.cuda.synchronize()
+    assert (fa_ops.launches, da_ops.launches, da_ops.partials_launches,
+            fs.launches) == (before[0], before[1],
+                             before[2] + 2 * cfg.n_layers, before[3] + 1)
+    want, _ = dense.decode(params, cache, token)
+    assert toks.shape == (3,) and toks.dtype == torch.int32
+    assert (got - want).abs().max().item() <= 0.05
