@@ -153,6 +153,9 @@ CASES = [
     ("qwen2_prefill_gqa7", 1, 512, 512, 28, 4, 128, True, None, None,
      torch.bfloat16),
 ]
+# the flash cases that are timed: the offline main path and one qwen2-7b
+# prefill admission
+TIMED_FLASH = ("main_path_bidir", "qwen2_prefill_gqa7")
 
 # decode attention: (name, b, h, kv, d, t, lengths, window, cap, dtype).
 # The first case is the serving path's shape (8 slots of a 1024-position
@@ -203,8 +206,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
+    """Mean time of ``fn`` over ``iters`` back-to-back calls, on CUDA
+    events: the device's time, or the host's where it issues the calls
+    more slowly than the device runs them."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -218,10 +223,8 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(q, k, v, causal, window) -> tuple:
-    """(least ms, "bytes" or "operations") for one attention call: q, k, v
-    read once and o written once; two products over the visible (row,
-    column) pairs of these inputs."""
+def attention_flops(q, k, causal, window) -> float:
+    """The two products' FLOPs over the visible (row, column) pairs."""
     b, s, h, d = q.shape
     t = k.shape[1]
     rows = torch.arange(s)[:, None]
@@ -231,7 +234,14 @@ def attention_bound_ms(q, k, v, causal, window) -> tuple:
         visible &= cols <= rows
     if window is not None:
         visible &= cols > rows - window
-    flops = 4.0 * b * h * d * int(visible.sum())
+    return 4.0 * b * h * d * int(visible.sum())
+
+
+def attention_bound_ms(q, k, v, causal, window) -> tuple:
+    """(least ms, "bytes" or "operations") for one attention call: q, k, v
+    read once and o written once; two products over the visible (row,
+    column) pairs of these inputs."""
+    flops = attention_flops(q, k, causal, window)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[q.dtype]
@@ -241,8 +251,8 @@ def attention_bound_ms(q, k, v, causal, window) -> tuple:
 
 def check_kernel(dev) -> dict:
     """Phase (a): the kernel against its plain version, case by case, and
-    timed at the main path's shape."""
-    main = None
+    timed at the main path's shape and at qwen2-7b's prefill."""
+    errs, inputs = [], {}
     for name, b, s, t, h, kv, d, causal, window, cap, dtype in CASES:
         g = torch.Generator(device=dev).manual_seed(len(name))
         q, k, v = (torch.randn(shape, generator=g, device=dev, dtype=dtype)
@@ -260,29 +270,50 @@ def check_kernel(dev) -> dict:
         if not ok:
             raise AssertionError(f"flash_attention kernel disagrees with its "
                                  f"plain version on {name}: {err}")
-        if main is None:
-            main = (q, k, v, causal, window, cap, err)
+        errs.append(err)
+        if name in TIMED_FLASH:
+            inputs[name] = (q, k, v, causal, window, cap)
 
-    q, k, v, causal, window, cap, err = main
-    ms = cuda_ms(lambda: fa_ops.flash_attention(
-        q, k, v, causal=causal, window=window, softcap=cap), iters=20)
-    plain_ms = cuda_ms(lambda: flash_attention_ref(
-        q, k, v, causal=causal, window=window, softcap=cap), iters=5)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, S, D) views
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal), iters=20)
-    bound_ms, bound_by = attention_bound_ms(q, k, v, causal, window)
-    print(f"kernel flash_attention at the main path's shape "
-          f"{tuple(q.shape)}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    err = max(errs)
+    timed = {}
+    for name in TIMED_FLASH:
+        q, k, v, causal, window, cap = inputs[name]
+        kv = k.shape[2]
+        ms = cuda_ms(lambda: fa_ops.flash_attention(
+            q, k, v, causal=causal, window=window, softcap=cap), iters=50)
+        kern_ms = kernel_device_ms(lambda: fa_ops.flash_attention(
+            q, k, v, causal=causal, window=window, softcap=cap), "flash_fwd")
+        plain_ms = cuda_ms(lambda: flash_attention_ref(
+            q, k, v, causal=causal, window=window, softcap=cap), iters=5)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, S, D)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=kv != q.shape[2]),
+            iters=50)
+        bound_ms, bound_by = attention_bound_ms(q, k, v, causal, window)
+        flops = attention_flops(q, k, causal, window)
+        timed[name] = {"shape": [list(q.shape), list(k.shape)],
+                       "causal": causal, "ms": ms, "kernel_device_ms":
+                       kern_ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "tflops": flops / ms / 1e9}
+        print(f"kernel flash_attention {name} q{tuple(q.shape)} "
+              f"k{tuple(k.shape)} {'causal' if causal else 'bidir'}: "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; the kernel "
+              f"alone {kern_ms:.4f} ms, profiled), plain {plain_ms:.4f} ms, "
+              f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}); those FLOPs on the fp32 FMA peak (a bf16 time "
+              f"below it shows the tensor cores ran) "
+              f"{1e3 * flops / PEAK_FLOPS[torch.float32]:.3f} ms")
+    main = timed[TIMED_FLASH[0]]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/"
                       "flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/"
                         "flash_attention.py:87",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "max_abs_err": err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "timed": timed}
 
 
 class _OutputDevices(torch.overrides.TorchFunctionMode):
@@ -387,7 +418,13 @@ def run_main_path(dev) -> int:
             engine.run, out["params"], batch), iters=10)
         forward_plain_ms = cuda_ms(lambda: plain.model.forward(
             plain.run, out["params"], batch), iters=10)
+        attn_ms = kernel_device_ms(lambda: engine.model.forward(
+            engine.run, out["params"], batch), "flash_fwd", n=10)
         layer_err = attention_layer_errors(cfg, out["params"], batch)
+    print(f"forward of {bs} x {MAIN['seq_len']} tokens: {forward_ms:.4f} ms "
+          f"(plain attention {forward_plain_ms:.4f} ms); the flash kernel "
+          f"{attn_ms:.4f} ms of it in {cfg.n_layers} launches, share "
+          f"{attn_ms / forward_ms:.3f}")
     print(f"per-layer attention, kernel vs plain on the same input: "
           f"relative RMS error {[f'{e:.3g}' for e in layer_err]} "
           f"(tol {LAYER_RTOL})")
@@ -436,6 +473,8 @@ def run_main_path(dev) -> int:
         "par_compute_s": sum(t.outcome.compute_s for t in par.tasks),
         "forward_ms_per_batch": forward_ms,
         "forward_plain_attention_ms_per_batch": forward_plain_ms,
+        "attention_kernel_ms_per_batch": attn_ms,
+        "attention_share_of_forward": attn_ms / forward_ms,
         "accuracy": out["accuracy"],
         "attention_layer_rel_err": layer_err,
         "plain_logit_err_vs_fp64": noise, "plain_label_flips_vs_fp64":
@@ -480,10 +519,12 @@ def decode_bound_ms(q, k, lengths, n_pos, window=None, page_size=None,
                                        else "operations")
 
 
-def profile_round(fn, n_prof: int = 3) -> dict:
+def profile_round(fn, n_prof: int = 3,
+                  names=("decode_kernel", "flash_fwd")) -> dict:
     """Where one call of ``fn`` (a decode round) spends device time:
     kernel events only (an op's own device time repeats its kernels'),
-    averaged over ``n_prof`` calls under the profiler."""
+    averaged over ``n_prof`` calls under the profiler; ``by_name`` sums
+    the ms of the kernels whose name holds each of ``names``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -502,7 +543,10 @@ def profile_round(fn, n_prof: int = 3) -> dict:
             "launches": sum(e.count for e in kernels) / n_prof,
             "window_ms": window_us / n_prof / 1e3,
             "breakdown": {e.key[:60]: round(e.self_device_time_total
-                                            / n_prof, 1) for e in top}}
+                                            / n_prof, 1) for e in top},
+            "by_name": {name: sum(e.self_device_time_total for e in kernels
+                                  if name in e.key) / n_prof / 1e3
+                        for name in names}}
 
 
 def kernel_device_ms(fn, name: str, n: int = 20) -> float:
@@ -559,10 +603,16 @@ def check_decode_kernel(dev) -> dict:
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=50)
     bound_ms, bound_by = decode_bound_ms(q, k, lens, k.shape[1], window)
+    n_split = da_ops._n_split(q, q.shape[0] * k.shape[2], t, window)
+    kern_ms = kernel_device_ms(lambda: da_ops.decode_attention(q, k, v, lens),
+                               "decode_kernel")
     print(f"kernel decode_attention at the serving path's shape "
-          f"q{tuple(q.shape)} k{tuple(k.shape)}: {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-          f"{bound_ms:.5f} ms ({bound_by})")
+          f"q{tuple(q.shape)} k{tuple(k.shape)}: {ms:.4f} ms on a cluster "
+          f"of n_split={n_split} blocks a (row, kv head) (the kernel alone "
+          f"{kern_ms:.4f} ms, profiled), plain {plain_ms:.4f} ms, sdpa "
+          f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    if n_split < 2:
+        raise AssertionError(f"the serving shape ran n_split={n_split}")
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/decode_attention/"
                       "decode_attention.cu",
@@ -570,7 +620,8 @@ def check_decode_kernel(dev) -> dict:
                         "decode_attention.py:202",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "n_split": n_split,
+            "kernel_device_ms": kern_ms}
 
 
 def sampling_inputs(logits, kw, g):
@@ -836,12 +887,16 @@ def check_variant_kernels(dev) -> list:
         bound_ms, bound_by = decode_bound_ms(
             x["q"], x["k"], x["lengths"], n_pos, page_size=ps,
             scaled="k_scale" in x)
+        n_split = da_ops._n_split(x["q"], b * kv, n_pos, None)
+        kern_ms = kernel_device_ms(lambda: a3_call(variant, x),
+                                   "decode_kernel")
         kname, line = A3_KERNELS[variant]
         print(f"kernel {kname} at the serving path's shape "
-              f"q{tuple(x['q'].shape)} kv{tuple(x['k'].shape)}: {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, dense bf16 kernel at the same "
-              f"logical shape {dense_ms:.4f} ms, no single library call, "
-              f"bound {bound_ms:.5f} ms ({bound_by})")
+              f"q{tuple(x['q'].shape)} kv{tuple(x['k'].shape)}: {ms:.4f} ms "
+              f"on n_split={n_split} (the kernel alone {kern_ms:.4f} ms, "
+              f"profiled), plain {plain_ms:.4f} ms, dense bf16 kernel at "
+              f"the same logical shape {dense_ms:.4f} ms, no single library "
+              f"call, bound {bound_ms:.5f} ms ({bound_by})")
         results.append({
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/kernels/decode_attention/"
@@ -849,7 +904,8 @@ def check_variant_kernels(dev) -> list:
             "replaces": f"src/repro/kernels/decode_attention/{line}",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "dense_kernel_ms": dense_ms})
+            "dense_kernel_ms": dense_ms, "n_split": n_split,
+            "kernel_device_ms": kern_ms})
     return results
 
 
@@ -1000,8 +1056,10 @@ def check_partials_kernel(dev) -> dict:
                 plain_ms = cuda_ms(lambda: decode_attention_partials_ref(
                     q, kb, vb, lens, offset=off), iters=20)
         timed[m] = per
+        n_split = da_ops._n_split(q, q.shape[0] * k.shape[2],
+                                  k.shape[1] // m, None)
         print(f"kernel decode_attention_partials at the serving path's "
-              f"shape cut into M={m}: per shard "
+              f"shape cut into M={m} (n_split={n_split} a shard): per shard "
               f"{[round(x['ms'], 4) for x in per]} ms, bounds "
               f"{[round(x['bound_ms'], 5) for x in per]} ms "
               f"({per[0]['bound_by']}); dense decode kernel on the whole "
@@ -1029,6 +1087,8 @@ def check_partials_kernel(dev) -> dict:
             "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
             "library_ms": None, "dense_kernel_ms": dense_ms,
             "kernel_device_ms": kern_ms,
+            "n_split": da_ops._n_split(q, q.shape[0] * k.shape[2],
+                                       k.shape[1], None),
             "dense_kernel_device_ms": dense_kern_ms,
             "per_shard": {str(m): x for m, x in timed.items()}}
 
@@ -1307,6 +1367,7 @@ def run_generation(dev) -> tuple:
     prof = profile_round(lambda: engine.decode(params, check, tok))
     busy_ms, launches_per_round = prof["busy_ms"], prof["launches"]
     breakdown = prof["breakdown"]
+    decode_kernel_ms = prof["by_name"]["decode_kernel"]
     idle = 1 - busy_ms / decode_ms if busy_ms else None
     print(f"decode round (8 slots, CUDA events): kernel path {decode_ms:.3f}"
           f" ms, plain attention {decode_plain_ms:.3f} ms; prefill of "
@@ -1314,8 +1375,9 @@ def run_generation(dev) -> tuple:
           f"{busy_ms:.3f} ms a round in {launches_per_round:.0f} kernel "
           f"launches ({prof['window_ms']:.3f} ms a round under the "
           f"profiler), idle share of the unprofiled round "
-          f"{'not measured' if idle is None else f'{idle:.3f}'}; top "
-          f"kernels (us/round) {breakdown}")
+          f"{'not measured' if idle is None else f'{idle:.3f}'}; the "
+          f"decode kernel {decode_kernel_ms:.4f} ms of device time a round;"
+          f" top kernels (us/round) {breakdown}")
 
     def rates(res):
         bk = res["bucket_s"]
@@ -1343,6 +1405,7 @@ def run_generation(dev) -> tuple:
         "decode_round_plain_attention_ms": decode_plain_ms,
         "prefill_ms_longest": prefill_ms, "round_device_busy_ms": busy_ms,
         "round_kernel_launches": launches_per_round,
+        "round_decode_kernel_ms": decode_kernel_ms,
         "profiled_round_wall_ms": prof["window_ms"],
         "idle_share": idle, "round_breakdown_us": breakdown})
     print("generate " + json.dumps(out))
@@ -2380,8 +2443,9 @@ def main():
                                  f"{main_path[k['name']]}")
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "launches_by_path"]
-    print(json.dumps({"kernels": [{key: k[key] for key in order}
+             "library_ms", "launches_by_path", "n_split",
+             "kernel_device_ms", "timed"]
+    print(json.dumps({"kernels": [{key: k[key] for key in order if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 // Ragged decode attention for Hopper (sm_90a), written by hand: one kernel
-// templated over how a KV tile is addressed and read, four entry points.
+// templated over how a KV tile is addressed and read, five entry points.
 //
 // Replaces the TPU kernels of src/repro/kernels/decode_attention/
 // decode_attention.py (body _kernel :106 with _tile_update :43 and
@@ -39,47 +39,55 @@
 //   * a row with no visible position writes 0; output in q's dtype (the
 //     partials entry writes its fp32 state instead, unnormalised).
 //
-// Design. The Pallas kernels run a (batch, kv_head, tile) grid whose last
-// axis is sequential, keep (m, l, acc) in VMEM scratch across tiles, and
-// clamp the tile index at the row's last valid tile so dead tiles cost no
-// DMA; the paged ones make a tile one page and resolve it through the
-// scalar-prefetched table in the index map. Here one thread block owns one
-// (batch row, kv head) and loops over 64-position tiles of its own row from
-// the first visible one to min(lengths[b], capacity - 1): the loop bound is
-// the per-row early exit that _clamp_tile gives on the TPU. The tile stays
-// 64 positions whatever the page size (a tile of one page would be 16
-// positions at the serving default, and the loads would shrink with it):
-// before each tile, the block resolves every position's physical row
-// (table[b, pos / ps], pos % ps) and, for int8, its two scales into shared
-// memory. A position's D values are contiguous within a (page, offset, kv
-// head), so the 16-byte loads stay as they are; rows sharing prefix pages
-// read the same physical pages. All G query heads of the kv head are
-// processed together, so each K/V tile is read from memory once for the
-// whole group (GQA as rows, as the MXU does it). 128 threads: each tile is
-// loaded 16 bytes a thread at a time (8 bf16 or 16 int8 values), all loads
-// of the tile in flight together, dequantized in registers and staged as
-// fp32 in shared memory (K as [64][D+1], padded against bank conflicts; V
-// as [64][D]); scores are spread over (head, position) pairs; each warp
-// runs the online-softmax update of some heads with shuffles; the
-// accumulator [G][D] lives in shared memory, each entry owned by one
-// thread.
+// What bounds it on an H100 SXM (3.35 TB/s HBM3, NVIDIA's data sheet at
+// the 700 W limit): decode attention does 4 * H * D FLOPs per visible
+// position and must read that position's K and V rows, 4 * D * KV bytes in
+// bf16 and (D + 4) * 2 * KV in int8, so it is bound by bytes. At the
+// serving path's shape (B=8, H=28, KV=4, D=128, lengths 72-500: 1 898
+// visible positions) that is 7.8 MB, 1.2 us a layer in bf16 and 0.6 us in
+// int8. What held the earlier design far above that was not the bytes but
+// its serial loop: one block per (row, kv head), 32 blocks on 132 SMs, each
+// walking its row's tiles one after the other with a 128-long FMA chain a
+// score.
 //
-// What bounds it on an H100 SXM (3.35 TB/s HBM3, 67 TFLOP/s fp32 FMA):
-// decode attention does 4 * H * D FLOPs per visible position and must read
-// its K and V rows: 4 * D * KV bytes per visible position in bf16,
-// (D + 4) * 2 * KV in int8 (0.516x at D = 128), so it is bound by bytes.
-// At the serving path's shape (B=8, H=28, KV=4, D=128, a few hundred
-// visible positions a row) that is about 1.2 us a layer in bf16 and 0.6 us
-// in int8. This simple version launches only B * KV blocks (32 at B=8 on
-// 132 SMs), does not overlap a tile's loads with the previous tile's
-// arithmetic (no cp.async/TMA double buffering), and runs on the CUDA
-// cores in fp32; splitting the sequence over more blocks (the partials
-// kernel's (num, den, m) merge) is later work. The partials entry is the
-// dense bf16/fp32 loop with the lengths shifted by the shard's offset and
-// the state written out, so at one shard it does the dense kernel's
-// arithmetic bit for bit; its bound is the shard's visible K/V plus the
-// fp32 outputs.
+// Design. The Pallas kernels run a (batch, kv_head, tile) grid whose last
+// axis is sequential and keep (m, l, acc) in VMEM scratch across tiles.
+// Here a (row, kv head) is worked by a thread-block CLUSTER of n_split
+// blocks (grid (KV * n_split, B), cluster (n_split, 1, 1); the wrapper
+// picks n_split from B * KV, the SM count and the longest range a row can
+// see, at most the portable cluster size of 8):
+//   * block r of the cluster takes the r-th contiguous chunk of whole
+//     64-position tiles of the row's own visible range [lo, hi], so the
+//     split balances whatever the capacity; a chunk past hi is empty and
+//     keeps the neutral state (0, 0, -1e30), which drops out of the merge;
+//   * within a block, 256 threads stream their chunk's tiles through two
+//     shared-memory stages by cp.async, 16 bytes a lane (8 bf16 or 16 int8
+//     values), so the next tile's copy overlaps the current tile's math.
+//     Paged rows resolve each position through the table as its copy is
+//     issued (rows sharing prefix pages read the same physical pages), and
+//     int8 scales arrive beside the data and are applied in registers;
+//   * all G query heads of the kv head are processed together, so each K/V
+//     tile is read from memory once for the group. A warp takes a head:
+//     each lane holds 16 bytes of q and of a K row, the D reduction runs
+//     across D / 8 (bf16) lanes with warp shuffles, and the warp then runs
+//     the head's online-softmax update over the tile; then every thread
+//     accumulates P V for (head, 8 bytes of D) items. Eight warps rather
+//     than four: with about two blocks an SM, the warps of a block are what
+//     hides each other's load and shuffle latency;
+//   * the merge stays inside the cluster: after cluster.sync(), the block
+//     of cluster rank 0 reads the other blocks' (acc, l, m) through
+//     distributed shared memory (map_shared_rank), takes M = max m, scales
+//     by exp(m_r - M) and sums; the dense, int8 and paged entries divide
+//     and write q's dtype, the partials entry writes (num, den, M). No
+//     second launch and no global scratch. A second cluster.sync() keeps
+//     every block's shared memory alive until rank 0 has read it.
+// The dense and the partials entries split a row the same way and merge in
+// the same order, so at one shard (offset 0, the same n_split) the
+// partials state divided by torch gives the dense kernel's output bit for
+// bit. Entry-specific arithmetic stays behind the PAGED / QUANT / PARTIALS
+// template flags.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -87,11 +95,15 @@
 #include <cstdint>
 #include <type_traits>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int BLOCK_T = 64;
-constexpr int THREADS = 128;
+constexpr int BLOCK_T = 64;      // positions per tile
+constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr int STAGES = 2;
+constexpr int MAX_SPLIT = 8;     // the portable cluster size
 constexpr float NEG_INF = -1e30f;
 constexpr size_t MAX_SMEM = 232448;  // per block on sm_90
 
@@ -110,6 +122,7 @@ struct Params {
   int window;     // <= 0: no window
   float softcap;  // <= 0: no cap
   float scale;    // 1 / sqrt(D)
+  int n_split;    // blocks (one cluster) per (row, kv head)
   // partials only: the block's first global position; fp32 outputs
   int offset = 0;
   float* num = nullptr;  // (B,KV,G,D)
@@ -134,9 +147,32 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+template <typename KVT>
 size_t smem_bytes(int g, int d) {
-  return sizeof(float) * ((size_t)2 * g * d + BLOCK_T * (d + 1) +
-                          BLOCK_T * d + g * BLOCK_T + 3 * g + 3 * BLOCK_T);
+  const size_t kv_tile = (size_t)BLOCK_T * d * sizeof(KVT);
+  return sizeof(float) * ((size_t)2 * g * d + (size_t)g * BLOCK_T +
+                          (size_t)(MAX_SPLIT + 4) * g) +
+         2 * STAGES * kv_tile + sizeof(float) * 2 * STAGES * BLOCK_T;
 }
 
 // T: q and output type; KVT: cache type (T, or int8_t with scales);
@@ -144,32 +180,37 @@ size_t smem_bytes(int g, int d) {
 // block, unnormalised (num, den, m) out (dense, unquantized caches only).
 template <typename T, typename KVT, bool PAGED, int D, bool PARTIALS>
 __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
-  static_assert(BLOCK_T == 64, "the softmax step gives each lane 2 columns");
   constexpr bool QUANT = std::is_same<KVT, int8_t>::value;
   static_assert(!PARTIALS || (!PAGED && !QUANT),
                 "partials run over a dense block of q's dtype");
   static_assert(QUANT || std::is_same<KVT, T>::value,
                 "a non-int8 cache has q's dtype");
-  constexpr bool RESOLVE = PAGED || QUANT;  // per-tile row/scale prelude
   constexpr int VEC = 16 / sizeof(KVT);  // elements per 16-byte load
   static_assert(D % VEC == 0, "rows are loaded 16 bytes at a time");
-  constexpr int DV = D / VEC;
-  constexpr int LOAD_ROUNDS = (BLOCK_T * DV + THREADS - 1) / THREADS;
-  extern __shared__ float smem[];
-  const int G = p.group;
-  float* q_s = smem;                     // [G][D]
-  float* k_s = q_s + G * D;              // [BLOCK_T][D + 1]
-  float* v_s = k_s + BLOCK_T * (D + 1);  // [BLOCK_T][D]
-  float* s_s = v_s + BLOCK_T * D;        // [G][BLOCK_T] scores, then probs
-  float* acc_s = s_s + G * BLOCK_T;      // [G][D]
-  float* m_s = acc_s + G * D;            // [G] running max
-  float* l_s = m_s + G;                  // [G] running sum
-  float* a_s = l_s + G;                  // [G] this tile's rescale factor
-  int* row_s = reinterpret_cast<int*>(a_s + G);  // [BLOCK_T] physical rows
-  float* ks_s = a_s + G + BLOCK_T;       // [BLOCK_T] int8: k scales
-  float* vs_s = ks_s + BLOCK_T;          // [BLOCK_T] int8: v scales
+  constexpr int LPP = D / VEC;           // lanes (16-byte parts) a row
+  static_assert(LPP <= 32, "a K row fits one warp");
+  constexpr int PPS = 32 / LPP;          // positions a warp step
+  constexpr int STEPS = BLOCK_T / PPS;   // warp steps a tile
+  constexpr int PVV = VEC / 2;           // elements of a P V item (8 bytes)
+  constexpr int KV_TILE = BLOCK_T * D;   // elements of one K or V tile
 
-  const int kvh = blockIdx.x, b = blockIdx.y;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int G = p.group;
+  KVT* k_s = reinterpret_cast<KVT*>(smem_raw);      // [STAGES][BLOCK_T][D]
+  KVT* v_s = k_s + STAGES * KV_TILE;                // [STAGES][BLOCK_T][D]
+  float* ks_s = reinterpret_cast<float*>(v_s + STAGES * KV_TILE);
+  float* vs_s = ks_s + STAGES * BLOCK_T;  // int8: [STAGES][BLOCK_T] scales
+  float* q_s = vs_s + STAGES * BLOCK_T;   // [G][D]
+  float* acc_s = q_s + G * D;             // [G][D]
+  float* s_s = acc_s + G * D;             // [G][BLOCK_T] scores, then probs
+  float* m_s = s_s + G * BLOCK_T;         // [G] running max
+  float* l_s = m_s + G;                   // [G] running sum
+  float* a_s = l_s + G;  // [G] this tile's rescale factor; rank 0's merge
+                         // scratch, [MAX_SPLIT + 2][G]
+
+  const int rank = (int)cluster.block_rank();
+  const int kvh = blockIdx.x / p.n_split, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long kv_stride = (long)p.KV * D;  // elements between positions
   const T* q = static_cast<const T*>(p.q) +
@@ -179,16 +220,55 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
   // r * KV + kvh
   const KVT* k = static_cast<const KVT*>(p.k) + (long)kvh * D;
   const KVT* v = static_cast<const KVT*>(p.v) + (long)kvh * D;
-  T* o = static_cast<T*>(p.o) + ((long)b * p.H + (long)kvh * G) * D;
 
   // visible positions of this row, local to the block: [lo, hi] (a
   // shard's partials shift the length by the block's offset; a row the
-  // shard holds nothing of has hi < lo and runs no tile)
+  // shard holds nothing of has hi < lo)
   const int len = p.lengths[b] - (PARTIALS ? p.offset : 0);
   const int hi = min(len, p.T - 1);
   const int lo = p.window > 0 ? max(0, len - p.window + 1) : 0;
+  // this block's chunk: whole tiles [t_first, t_end) of [lo, hi]
+  const int n_tiles = hi >= lo ? (hi - lo) / BLOCK_T + 1 : 0;
+  const int per = (n_tiles + p.n_split - 1) / p.n_split;
+  const int t_first = min(rank * per, n_tiles);
+  const int t_end = min(t_first + per, n_tiles);
+  const int my_tiles = t_end - t_first;
 
-  for (int i = tid; i < G * D; i += THREADS) {
+  // copies tile t of the chunk into `stage`: 16 bytes per (position, part);
+  // positions past hi are not read
+  auto load_tile = [&](int t, int stage) {
+    const int t0 = lo + (t_first + t) * BLOCK_T;
+    const int n = min(BLOCK_T, hi + 1 - t0);
+    KVT* kd = k_s + stage * KV_TILE;
+    KVT* vd = v_s + stage * KV_TILE;
+    for (int c = tid; c < BLOCK_T * LPP; c += THREADS) {
+      const int j = c / LPP, part = c % LPP;
+      if (j >= n) continue;
+      const int pos = t0 + j;
+      long row;
+      if constexpr (PAGED) {
+        int page = p.table[(long)b * p.pmax + pos / p.page_size];
+        page = min(max(page, 0), p.n_pages - 1);  // never out of the pool
+        row = (long)page * p.page_size + pos % p.page_size;
+      } else {
+        row = (long)b * p.T + pos;
+      }
+      const long off = row * kv_stride + part * VEC;
+      cp_async16(kd + j * D + part * VEC, k + off);
+      cp_async16(vd + j * D + part * VEC, v + off);
+      if constexpr (QUANT) {
+        if (part == 0) {
+          cp_async4(ks_s + stage * BLOCK_T + j, p.k_scale + row * p.KV + kvh);
+          cp_async4(vs_s + stage * BLOCK_T + j, p.v_scale + row * p.KV + kvh);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (my_tiles > 0) load_tile(0, 0);
+  if (my_tiles > 1) load_tile(1, 1);
+  for (int i = tid; i < G * D; i += THREADS) {  // while the copies fly
     q_s[i] = to_float(q[i]);
     acc_s[i] = 0.f;
   }
@@ -197,87 +277,61 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
     l_s[g] = 0.f;
   }
 
-  for (int t0 = (lo / BLOCK_T) * BLOCK_T; lo <= hi && t0 <= hi;
-       t0 += BLOCK_T) {
-    __syncthreads();  // init is visible; the last tile is fully consumed
-    const int n = min(BLOCK_T, hi + 1 - t0);  // positions of this tile <= hi
-    if constexpr (RESOLVE) {  // physical rows (and scales) of the tile
-      if (tid < n) {
-        const int pos = t0 + tid;
-        int r;
-        if constexpr (PAGED) {
-          int page = p.table[(long)b * p.pmax + pos / p.page_size];
-          page = min(max(page, 0), p.n_pages - 1);  // never out of the pool
-          r = page * p.page_size + pos % p.page_size;
-        } else {
-          r = b * p.T + pos;
-        }
-        row_s[tid] = r;
-        if constexpr (QUANT) {
-          ks_s[tid] = p.k_scale[(long)r * p.KV + kvh];
-          vs_s[tid] = p.v_scale[(long)r * p.KV + kvh];
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int r = 0; r < LOAD_ROUNDS; ++r) {  // 16-byte loads, all in flight
-      const int i = tid + r * THREADS;
-      if (i < BLOCK_T * DV) {
-        const int j = i / DV, d0 = (i % DV) * VEC;
-        uint4 kraw = make_uint4(0, 0, 0, 0), vraw = kraw;
-        if (j < n) {
-          long row;
-          if constexpr (RESOLVE) {
-            row = row_s[j];
-          } else {
-            row = (long)b * p.T + t0 + j;
-          }
-          const long off = row * kv_stride + d0;
-          kraw = *reinterpret_cast<const uint4*>(k + off);
-          vraw = *reinterpret_cast<const uint4*>(v + off);
-        }
-        const KVT* kx = reinterpret_cast<const KVT*>(&kraw);
-        const KVT* vx = reinterpret_cast<const KVT*>(&vraw);
-        if constexpr (QUANT) {  // dequantize: float(int8) * scale
-          const float ksc = j < n ? ks_s[j] : 0.f;
-          const float vsc = j < n ? vs_s[j] : 0.f;
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) {
-            k_s[j * (D + 1) + d0 + e] = to_float(kx[e]) * ksc;
-            v_s[j * D + d0 + e] = to_float(vx[e]) * vsc;
-          }
-        } else {
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) {
-            k_s[j * (D + 1) + d0 + e] = to_float(kx[e]);
-            v_s[j * D + d0 + e] = to_float(vx[e]);
-          }
-        }
-      }
-    }
-    __syncthreads();
+  for (int t = 0; t < my_tiles; ++t) {
+    const int stage = t % STAGES;
+    if (t + 1 < my_tiles) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    __syncthreads();  // tile t landed; init and the last tile's P V done
+    const int t0 = lo + (t_first + t) * BLOCK_T;
+    const int n = min(BLOCK_T, hi + 1 - t0);
+    const KVT* kt = k_s + stage * KV_TILE;
+    const KVT* vt = v_s + stage * KV_TILE;
+    const float* kst = ks_s + stage * BLOCK_T;
+    const float* vst = vs_s + stage * BLOCK_T;
 
-    for (int i = tid; i < G * BLOCK_T; i += THREADS) {
-      const int g = i / BLOCK_T, j = i % BLOCK_T;
-      const int pos = t0 + j;
-      float s = NEG_INF;
-      if (pos >= lo && pos <= hi) {
-        const float* qg = q_s + g * D;
-        const float* kj = k_s + j * (D + 1);
-        float dot = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) dot = fmaf(qg[d], kj[d], dot);
-        s = dot * p.scale;
-        if (p.softcap > 0.f) s = p.softcap * tanhf(s / p.softcap);
-      }
-      s_s[i] = s;
-    }
-    __syncthreads();
-
+    // scores and the online-softmax update, one head a warp. A lane holds
+    // 16 bytes of q and reads 16 bytes of each of STEPS K rows; the partial
+    // dots are all formed first, then reduced across the LPP lanes of a
+    // row, so neither the loads nor the shuffles wait on each other.
     for (int g = warp; g < G; g += WARPS) {
-      float* row = s_s + g * BLOCK_T;
-      const float x0 = row[lane], x1 = row[lane + 32];
+      const int part = lane % LPP, grp = lane / LPP;
+      float qr[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qr[e] = q_s[g * D + part * VEC + e];
+      float dots[STEPS];
+#pragma unroll
+      for (int st = 0; st < STEPS; ++st) {  // rows past n read what is there
+        const int j = st * PPS + grp;
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(kt + j * D + part * VEC);
+        const KVT* kx = reinterpret_cast<const KVT*>(&raw);
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) dot = fmaf(qr[e], to_float(kx[e]), dot);
+        dots[st] = dot;
+      }
+#pragma unroll
+      for (int off = LPP / 2; off > 0; off >>= 1)
+#pragma unroll
+        for (int st = 0; st < STEPS; ++st)
+          dots[st] += __shfl_xor_sync(0xffffffffu, dots[st], off);
+      float* row_s = s_s + g * BLOCK_T;
+#pragma unroll
+      for (int st = 0; st < STEPS; ++st) {  // the LPP lanes take turns
+        if (part == st % LPP) {
+          const int j = st * PPS + grp;
+          float s = NEG_INF;
+          if (j < n) {
+            float dot = dots[st];
+            if constexpr (QUANT) dot *= kst[j];
+            s = dot * p.scale;
+            if (p.softcap > 0.f) s = p.softcap * tanhf(s / p.softcap);
+          }
+          row_s[j] = s;
+        }
+      }
+      __syncwarp();
+      const float x0 = row_s[lane], x1 = row_s[lane + 32];
       float mx = fmaxf(x0, x1);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -289,12 +343,17 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
       const float alpha = m_prev > NEG_INF / 2 ? expf(m_prev - m_new) : 0.f;
       const float p0 = alive ? expf(x0 - m_new) : 0.f;
       const float p1 = alive ? expf(x1 - m_new) : 0.f;
-      row[lane] = p0;
-      row[lane + 32] = p1;
       float sum = p0 + p1;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if constexpr (QUANT) {  // v's scale folds into the probability
+        row_s[lane] = lane < n ? p0 * vst[lane] : 0.f;
+        row_s[lane + 32] = lane + 32 < n ? p1 * vst[lane + 32] : 0.f;
+      } else {
+        row_s[lane] = p0;
+        row_s[lane + 32] = p1;
+      }
       if (lane == 0) {
         l_s[g] = l_s[g] * alpha + sum;
         m_s[g] = m_new;
@@ -303,43 +362,134 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
     }
     __syncthreads();
 
-    for (int i = tid; i < G * D; i += THREADS) {
-      const int g = i / D, d = i % D;
+    // acc = acc * alpha + P V, one (head, 8 bytes of D) item a thread
+    for (int it = tid; it < G * (D / PVV); it += THREADS) {
+      const int g = it / (D / PVV), d0 = (it % (D / PVV)) * PVV;
       const float* pg = s_s + g * BLOCK_T;
-      float a = acc_s[i] * a_s[g];
-#pragma unroll 8
-      for (int j = 0; j < BLOCK_T; ++j) a = fmaf(pg[j], v_s[j * D + d], a);
-      acc_s[i] = a;
+      float a[PVV];
+      const float alpha = a_s[g];
+#pragma unroll
+      for (int e = 0; e < PVV; ++e) a[e] = acc_s[g * D + d0 + e] * alpha;
+#pragma unroll 4
+      for (int j = 0; j < n; ++j) {
+        const float pj = pg[j];
+        const uint2 raw = *reinterpret_cast<const uint2*>(vt + j * D + d0);
+        const KVT* vx = reinterpret_cast<const KVT*>(&raw);
+#pragma unroll
+        for (int e = 0; e < PVV; ++e) a[e] = fmaf(pj, to_float(vx[e]), a[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < PVV; ++e) acc_s[g * D + d0 + e] = a[e];
     }
+    __syncthreads();  // stage t % STAGES and s_s are free again
+    if (t + STAGES < my_tiles) load_tile(t + STAGES, stage);
   }
-  __syncthreads();
 
-  if constexpr (PARTIALS) {  // the state as it stands: nothing -> (0,0,-1e30)
-    const long head0 = ((long)b * p.KV + kvh) * G;
-    for (int i = tid; i < G * D; i += THREADS) p.num[head0 * D + i] = acc_s[i];
+  // merge the cluster's states in rank 0 (every block reaches both syncs):
+  // per head M = max m_r, weights w_r = exp(m_r - M) (0 for an empty
+  // chunk) and den = sum w_r l_r, then num = sum w_r acc_r over 4-float
+  // items, ranks in order
+  cluster.sync();
+  if (rank == 0) {
+    float* w_s = a_s;  // [MAX_SPLIT][G] weights, then [G] den (local)
+    float* den_s = w_s + MAX_SPLIT * G;
+    float* mall_s = den_s + G;
     for (int g = tid; g < G; g += THREADS) {
-      p.den[head0 + g] = l_s[g];
-      p.mx[head0 + g] = m_s[g];
+      float m_r[MAX_SPLIT];
+      float m_all = NEG_INF;
+#pragma unroll
+      for (int r = 0; r < MAX_SPLIT; ++r) {
+        if (r < p.n_split) {
+          m_r[r] = cluster.map_shared_rank(m_s, r)[g];
+          m_all = fmaxf(m_all, m_r[r]);
+        }
+      }
+      float den = 0.f;
+#pragma unroll
+      for (int r = 0; r < MAX_SPLIT; ++r) {
+        if (r < p.n_split) {
+          const float w = m_r[r] > NEG_INF / 2 ? expf(m_r[r] - m_all) : 0.f;
+          w_s[r * G + g] = w;
+          den += w * cluster.map_shared_rank(l_s, r)[g];
+        }
+      }
+      den_s[g] = den;
+      mall_s[g] = m_all;
     }
-  } else {
-    for (int i = tid; i < G * D; i += THREADS) {
-      const float l = l_s[i / D];
-      o[i] = from_float<T>(l == 0.f ? 0.f : acc_s[i] / l);  // nothing -> 0
+    __syncthreads();
+    const long head0 = ((long)b * p.KV + kvh) * G;
+    for (int i = tid * 4; i < G * D; i += THREADS * 4) {
+      const int g = i / D;
+      float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int r = 0; r < MAX_SPLIT; ++r) {
+        if (r < p.n_split) {
+          const float w = w_s[r * G + g];
+          const float4 a = *reinterpret_cast<const float4*>(
+              cluster.map_shared_rank(acc_s, r) + i);
+          num.x += w * a.x;
+          num.y += w * a.y;
+          num.z += w * a.z;
+          num.w += w * a.w;
+        }
+      }
+      const float den = den_s[g];
+      if constexpr (PARTIALS) {  // nothing visible -> (0, 0, -1e30)
+        *reinterpret_cast<float4*>(p.num + head0 * D + i) = num;
+        if (i % D == 0) {
+          p.den[head0 + g] = den;
+          p.mx[head0 + g] = mall_s[g];
+        }
+      } else {
+        T* o = static_cast<T*>(p.o) + ((long)b * p.H + (long)kvh * G) * D;
+        const float x[4] = {num.x, num.y, num.z, num.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // nothing visible -> 0
+          o[i + e] = from_float<T>(den == 0.f ? 0.f : x[e] / den);
+      }
     }
   }
+  cluster.sync();  // the other blocks' shared memory outlives rank 0's reads
+}
+
+// Raises the kernel's dynamic shared-memory limit on the current device
+// when a launch needs more than it was last given (once per kernel and
+// device, not on every launch).
+template <auto Kernel>
+cudaError_t allow_smem(size_t bytes) {
+  static size_t allowed[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && allowed[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < 64) allowed[dev] = bytes;
+  return err;
 }
 
 template <typename T, typename KVT, bool PAGED, int D, bool PARTIALS>
 int launch(const Params& p, int batch, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.group, D);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<T, KVT, PAGED, D, PARTIALS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = smem_bytes<KVT>(p.group, D);
+  if (smem > MAX_SMEM || p.n_split < 1 || p.n_split > MAX_SPLIT)
+    return (int)cudaErrorInvalidValue;
+  constexpr auto kernel = decode_kernel<T, KVT, PAGED, D, PARTIALS>;
+  cudaError_t err = allow_smem<kernel>(smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(p.KV, batch);
-  decode_kernel<T, KVT, PAGED, D, PARTIALS><<<grid, THREADS, smem, stream>>>(
-      p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.KV * p.n_split, batch);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -362,13 +512,13 @@ Params make_params(const void* q, const void* k, const void* v,
                    const void* k_scale, const void* v_scale,
                    const void* lengths, const void* table, void* o, int t,
                    int h, int kv, int d, int page_size, int pmax,
-                   int n_pages, int window, float softcap) {
+                   int n_pages, int window, float softcap, int n_split) {
   return Params{q, k, v, static_cast<const float*>(k_scale),
                 static_cast<const float*>(v_scale),
                 static_cast<const int*>(lengths),
                 static_cast<const int*>(table), o, t, h, kv, h / kv,
                 page_size, pmax, n_pages, window, softcap,
-                1.0f / sqrtf((float)d)};
+                1.0f / sqrtf((float)d), n_split};
 }
 
 }  // namespace
@@ -378,16 +528,18 @@ extern "C" {
 // Each entry point launches on `stream` and returns cudaGetLastError() (0 on
 // success). is_bf16: 1 for bfloat16 q (and, unquantized, caches), 0 for
 // float32. lengths: (batch,) int32, page_table: (batch, pmax) int32, both
-// on the device. k and v must be 16-byte aligned.
+// on the device. k and v must be 16-byte aligned. n_split: blocks of one
+// cluster per (row, kv head), 1 .. 8.
 
 int decode_attention_fwd(const void* q, const void* k, const void* v,
                          const void* lengths, void* o, int is_bf16,
                          int batch, int t, int h, int kv, int d, int window,
-                         float softcap, void* stream) {
+                         float softcap, int n_split, void* stream) {
   if (batch <= 0 || t <= 0 || kv <= 0 || h % kv || misaligned(k, v))
     return (int)cudaErrorInvalidValue;
   const Params p = make_params(q, k, v, nullptr, nullptr, lengths, nullptr,
-                               o, t, h, kv, d, 0, 0, 0, window, softcap);
+                               o, t, h, kv, d, 0, 0, 0, window, softcap,
+                               n_split);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16
              ? dispatch_head_dim<__nv_bfloat16, __nv_bfloat16, false>(
@@ -400,11 +552,13 @@ int decode_attention_quant_fwd(const void* q, const void* k, const void* v,
                                const void* k_scale, const void* v_scale,
                                const void* lengths, void* o, int is_bf16,
                                int batch, int t, int h, int kv, int d,
-                               int window, float softcap, void* stream) {
+                               int window, float softcap, int n_split,
+                               void* stream) {
   if (batch <= 0 || t <= 0 || kv <= 0 || h % kv || misaligned(k, v))
     return (int)cudaErrorInvalidValue;
   const Params p = make_params(q, k, v, k_scale, v_scale, lengths, nullptr,
-                               o, t, h, kv, d, 0, 0, 0, window, softcap);
+                               o, t, h, kv, d, 0, 0, 0, window, softcap,
+                               n_split);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16
              ? dispatch_head_dim<__nv_bfloat16, int8_t, false>(p, batch, d,
@@ -417,14 +571,15 @@ int paged_decode_attention_fwd(const void* q, const void* k, const void* v,
                                const void* lengths, const void* table,
                                void* o, int is_bf16, int batch, int n_pages,
                                int page_size, int pmax, int h, int kv, int d,
-                               int window, float softcap, void* stream) {
+                               int window, float softcap, int n_split,
+                               void* stream) {
   if (batch <= 0 || n_pages <= 0 || page_size <= 0 || pmax <= 0 ||
       kv <= 0 || h % kv || misaligned(k, v))
     return (int)cudaErrorInvalidValue;
   const Params p =
       make_params(q, k, v, nullptr, nullptr, lengths, table, o,
                   pmax * page_size, h, kv, d, page_size, pmax, n_pages,
-                  window, softcap);
+                  window, softcap, n_split);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16
              ? dispatch_head_dim<__nv_bfloat16, __nv_bfloat16, true>(
@@ -438,14 +593,14 @@ int paged_decode_attention_quant_fwd(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* lengths, const void* table, void* o,
     int is_bf16, int batch, int n_pages, int page_size, int pmax, int h,
-    int kv, int d, int window, float softcap, void* stream) {
+    int kv, int d, int window, float softcap, int n_split, void* stream) {
   if (batch <= 0 || n_pages <= 0 || page_size <= 0 || pmax <= 0 ||
       kv <= 0 || h % kv || misaligned(k, v))
     return (int)cudaErrorInvalidValue;
   const Params p =
       make_params(q, k, v, k_scale, v_scale, lengths, table, o,
                   pmax * page_size, h, kv, d, page_size, pmax, n_pages,
-                  window, softcap);
+                  window, softcap, n_split);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16
              ? dispatch_head_dim<__nv_bfloat16, int8_t, true>(p, batch, d,
@@ -461,11 +616,13 @@ int decode_attention_partials_fwd(const void* q, const void* k, const void* v,
                                   const void* lengths, void* num, void* den,
                                   void* m, int is_bf16, int batch, int t,
                                   int h, int kv, int d, int offset,
-                                  int window, float softcap, void* stream) {
+                                  int window, float softcap, int n_split,
+                                  void* stream) {
   if (batch <= 0 || t <= 0 || kv <= 0 || h % kv || misaligned(k, v))
     return (int)cudaErrorInvalidValue;
   Params p = make_params(q, k, v, nullptr, nullptr, lengths, nullptr,
-                         nullptr, t, h, kv, d, 0, 0, 0, window, softcap);
+                         nullptr, t, h, kv, d, 0, 0, 0, window, softcap,
+                         n_split);
   p.offset = offset;
   p.num = static_cast<float*>(num);
   p.den = static_cast<float*>(den);

@@ -14,10 +14,16 @@ tensors, and only for them, the plain version (``ref.py``) runs.
 Each variant counts its own launches: ``launches`` (dense),
 ``quant_launches`` (dense int8), ``paged_launches``,
 ``paged_quant_launches`` and ``partials_launches``.
+
+The kernel works one (row, kv head) with a thread-block cluster of
+``n_split`` blocks, each taking a chunk of the row's visible range and
+merging through distributed shared memory; :func:`choose_n_split` picks
+the cluster size from what the host knows without reading the lengths.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Optional
 
@@ -33,6 +39,8 @@ from repro_torch.kernels.decode_attention.ref import (
 SOURCE = Path(__file__).with_name("decode_attention.cu")
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
 DTYPES = (torch.float32, torch.bfloat16)
+TILE = 64           # positions per kernel tile (BLOCK_T)
+CLUSTER_LIMIT = 8   # the portable thread-block cluster size
 
 # kernel launches per variant; callers reset them to count one run
 launches = 0
@@ -42,26 +50,68 @@ paged_quant_launches = 0
 partials_launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (q, k, v[, k_scale, v_scale], lengths[, page_table], o, is_bf16, ...)
+# (q, k, v[, k_scale, v_scale], lengths[, page_table], o, is_bf16, ...,
+#  cap, n_split, stream)
 _ARGTYPES = {
-    "decode_attention_fwd": [_P] * 5 + [_I] * 7 + [_F, _P],
-    "decode_attention_quant_fwd": [_P] * 7 + [_I] * 7 + [_F, _P],
-    "paged_decode_attention_fwd": [_P] * 6 + [_I] * 9 + [_F, _P],
-    "paged_decode_attention_quant_fwd": [_P] * 8 + [_I] * 9 + [_F, _P],
+    "decode_attention_fwd": [_P] * 5 + [_I] * 7 + [_F, _I, _P],
+    "decode_attention_quant_fwd": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+    "paged_decode_attention_fwd": [_P] * 6 + [_I] * 9 + [_F, _I, _P],
+    "paged_decode_attention_quant_fwd": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
     # (q, k, v, lengths, num, den, m, is_bf16, b, t, h, kv, d, offset,
-    #  window, cap, stream)
-    "decode_attention_partials_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
+    #  window, cap, n_split, stream)
+    "decode_attention_partials_fwd": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
 }
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
-    for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    return lib
+def choose_n_split(pairs: int, sms: int, max_visible: int) -> int:
+    """Blocks of one cluster per (row, kv head).
+
+    ``pairs`` is B * KV (one cluster each), ``sms`` the card's SM count and
+    ``max_visible`` the longest range a row can see (the capacity, or the
+    window when smaller). One block a pair once the pairs alone fill the
+    card; else enough blocks for about two an SM, never more than the
+    portable cluster size nor than the tiles a row can have.
+    """
+    if pairs >= sms:
+        return 1
+    tiles = max(1, -(-max_visible // TILE))
+    return max(1, min(CLUSTER_LIMIT, (2 * sms) // pairs, tiles))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _n_split(q, pairs: int, capacity: int, window) -> int:
+    visible = capacity if window is None else min(capacity, window)
+    return choose_n_split(pairs, _sm_count(q.device.index or 0), visible)
+
+
+_ENTRIES = {}  # entry name -> its ctypes function, set up once
+
+
+def _entry(name: str):
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        lib = build.load(SOURCE)
+        for entry, argtypes in _ARGTYPES.items():
+            f = getattr(lib, entry)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+            _ENTRIES[entry] = f
+        fn = _ENTRIES[name]
+    return fn
+
+
+def _lengths(lengths, b: int, device):
+    """(B,) int32 lengths on ``device``, contiguous; a tensor already so is
+    taken as it is (the serving path's case, every layer)."""
+    if (isinstance(lengths, torch.Tensor) and lengths.dtype == torch.int32
+            and lengths.shape == (b,) and lengths.device == device
+            and lengths.is_contiguous()):
+        return lengths
+    return row_lengths(lengths, b, device).contiguous()
 
 
 def _on_cpu(*xs) -> bool:
@@ -71,8 +121,9 @@ def _on_cpu(*xs) -> bool:
 def _check_cuda_inputs(q, kv_dtype, named):
     """Every tensor on q's CUDA device and contiguous; q in DTYPES; the
     caches (or pools) of ``kv_dtype`` and 16-byte aligned."""
+    dev = q.device
     for name, x in named:
-        if x.device.type != "cuda" or x.device != q.device:
+        if x.device != dev or dev.type != "cuda":
             raise ValueError(
                 f"{name} is on {x.device}: the kernel takes every input on "
                 f"one CUDA device (CPU tensors take the plain version)")
@@ -129,10 +180,15 @@ def _check_scales(k, k_scale, v_scale):
 
 
 def _launch(fn_name: str, q, *args):
-    lib = _library()
-    with torch.cuda.device(q.device):
-        err = getattr(lib, fn_name)(
-            *args, torch.cuda.current_stream(q.device).cuda_stream)
+    """One launch on q's device and current stream (the host's share of a
+    decode round: switch devices only when q is not on the current one)."""
+    fn = _entry(fn_name)
+    index = q.device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
     if err:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error "
                            f"{err}")
@@ -157,7 +213,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *, k_scale=None,
     if k_cache.shape[0] != b:
         raise ValueError(f"caches {tuple(k_cache.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    lengths = row_lengths(lengths, b, q.device).contiguous()
+    lengths = _lengths(lengths, b, q.device)
     if _on_cpu(q, k_cache, v_cache, k_scale, v_scale):
         if quant:
             return decode_attention_quant_ref(q, k_cache, v_cache, k_scale,
@@ -172,7 +228,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *, k_scale=None,
     _check_cuda_inputs(q, torch.int8 if quant else q.dtype, named)
     out = torch.empty_like(q)
     dims = (int(q.dtype == torch.bfloat16), b, t, h, kv, d, window or 0,
-            float(softcap or 0.0))
+            float(softcap or 0.0), _n_split(q, b * kv, t, window))
     global launches, quant_launches
     if quant:
         _launch("decode_attention_quant_fwd", q, q.data_ptr(),
@@ -212,7 +268,7 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_table, *,
             page_table.shape[1] < 1:
         raise ValueError(f"page_table {tuple(page_table.shape)} is not "
                          f"(B={b}, Pmax)")
-    lengths = row_lengths(lengths, b, q.device).contiguous()
+    lengths = _lengths(lengths, b, q.device)
     if _on_cpu(q, k_pages, v_pages, k_scale, v_scale, page_table):
         if quant:
             return paged_decode_attention_quant_ref(
@@ -229,9 +285,10 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_table, *,
         named += [("k_scale", k_scale), ("v_scale", v_scale)]
     _check_cuda_inputs(q, torch.int8 if quant else q.dtype, named)
     out = torch.empty_like(q)
-    dims = (int(q.dtype == torch.bfloat16), b, n_pages, ps,
-            page_table.shape[1], h, kv, d, window or 0,
-            float(softcap or 0.0))
+    pmax = page_table.shape[1]
+    dims = (int(q.dtype == torch.bfloat16), b, n_pages, ps, pmax, h, kv, d,
+            window or 0, float(softcap or 0.0),
+            _n_split(q, b * kv, pmax * ps, window))
     global paged_launches, paged_quant_launches
     if quant:
         _launch("paged_decode_attention_quant_fwd", q, q.data_ptr(),
@@ -267,7 +324,7 @@ def decode_attention_partials(q, k_cache, v_cache, lengths, *,
     if k_cache.shape[0] != b:
         raise ValueError(f"caches {tuple(k_cache.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    lengths = row_lengths(lengths, b, q.device).contiguous()
+    lengths = _lengths(lengths, b, q.device)
     if _on_cpu(q, k_cache, v_cache):
         return decode_attention_partials_ref(q, k_cache, v_cache, lengths,
                                              offset=offset, window=window,
@@ -283,7 +340,8 @@ def decode_attention_partials(q, k_cache, v_cache, lengths, *,
             k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
             num.data_ptr(), den.data_ptr(), m.data_ptr(),
             int(q.dtype == torch.bfloat16), b, t, h, kv, d, int(offset),
-            window or 0, float(softcap or 0.0))
+            window or 0, float(softcap or 0.0),
+            _n_split(q, b * kv, t, window))
     global partials_launches
     partials_launches += 1
     return num, den, m

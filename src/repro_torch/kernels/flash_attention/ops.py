@@ -2,9 +2,11 @@
 
 Counterpart of ``repro.kernels.flash_attention.ops.flash_attention``. For
 CUDA tensors it always launches the CUDA kernel (``flash_attention.cu``),
-at every size, after padding S and T to the kernel's block multiples and
-checking device, dtype, shape and contiguity. For CPU tensors, and only for
-them, it runs the plain version (``ref.py``).
+at every size, after checking device, dtype, shape, contiguity and (bf16)
+16-byte alignment. bf16 runs the tensor-core body, which takes any S and
+T; fp32 runs the CUDA-core body, for which S and T are padded to its
+block multiples. For CPU tensors, and only for them, it runs the plain
+version (``ref.py``).
 """
 from __future__ import annotations
 
@@ -53,6 +55,9 @@ def _check_cuda_inputs(q, k, v):
             raise ValueError(f"{name} is {x.dtype}, q is {q.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             f"reads it by TMA)")
     if q.dtype not in DTYPES:
         raise ValueError(f"dtype {q.dtype} not in {DTYPES}")
     if q.shape[-1] not in HEAD_DIMS:
@@ -86,16 +91,23 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                    softcap=softcap)
     _check_cuda_inputs(q, k, v)
     lib = _library()
-    qp, pad_q = _pad_to(q, 1, lib.flash_attention_block_q())
-    kp, _ = _pad_to(k, 1, lib.flash_attention_block_k())
-    vp, _ = _pad_to(v, 1, lib.flash_attention_block_k())
+    qp, kp, vp, pad_q = q, k, v, 0
+    if q.dtype == torch.float32:  # the CUDA-core body takes whole tiles
+        qp, pad_q = _pad_to(q, 1, lib.flash_attention_block_q())
+        kp, _ = _pad_to(k, 1, lib.flash_attention_block_k())
+        vp, _ = _pad_to(v, 1, lib.flash_attention_block_k())
     out = torch.empty_like(qp)
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
-            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
+    args = (qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
             int(q.dtype == torch.bfloat16), b, qp.shape[1], kp.shape[1], h,
-            kv, d, t, int(causal), window or 0, float(softcap or 0.0),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            kv, d, t, int(causal), window or 0, float(softcap or 0.0))
+    index = q.device.index
+    if index == torch.cuda.current_device():  # no device switch to pay for
+        err = lib.flash_attention_fwd(
+            *args, torch.cuda.current_stream(index).cuda_stream)
+    else:
+        with torch.cuda.device(index):
+            err = lib.flash_attention_fwd(
+                *args, torch.cuda.current_stream(index).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -25,6 +25,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from datetime import timedelta
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -34,6 +35,8 @@ import torch.distributed as dist
 from repro_torch.dist.context import Mesh
 
 STORE_ENV = "REPRO_TORCH_STORE"
+# how long a gloo rank waits at exit for its peers before tearing down
+EXIT_BARRIER = timedelta(seconds=60)
 
 
 def pick_backend(world_size: int, device) -> str:
@@ -70,8 +73,19 @@ def init_distributed(rank: int, world_size: int, *, device,
 
 
 def _destroy():
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    if not dist.is_initialized():
+        return
+    if dist.get_backend() == "gloo":
+        # every rank reaches teardown before any destroys its group: a
+        # rank destroying while a peer's gloo threads still run aborted
+        # that peer ("terminate called without an active exception") now
+        # and then; a rank that never arrives (it failed) is waited for
+        # at most EXIT_BARRIER
+        try:
+            dist.monitored_barrier(timeout=EXIT_BARRIER)
+        except RuntimeError:
+            pass
+    dist.destroy_process_group()
 
 
 def rank_env() -> tuple:

@@ -481,3 +481,111 @@ def test_seq_shard_engine_decode_matches_dense_kernel_on_card(cuda):
     want, _ = dense.decode(params, cache, token)
     assert toks.shape == (3,) and toks.dtype == torch.int32
     assert (got - want).abs().max().item() <= 0.05
+
+
+# flash attention on the tensor-core body (bf16): the timed shapes cut in
+# batch (distilbert at B 6 runs 128-row tiles, qwen2's prefill 64-row
+# ones), S and T that are no multiple of a tile, a window and a softcap;
+# every row sees at least one key (a row with none: the kernel writes 0,
+# the plain version averages v): (b, s, t, h, kv, d, causal, window, cap)
+WGMMA_CASES = [
+    (6, 512, 512, 12, 12, 64, False, None, None),   # distilbert, bidir
+    (1, 512, 512, 28, 4, 128, True, None, None),    # qwen2 prefill, GQA 7
+    (2, 300, 445, 8, 2, 64, False, None, None),     # ragged S and T
+    (1, 200, 333, 28, 4, 128, True, None, None),    # ragged, causal
+    (6, 512, 512, 12, 4, 64, True, 100, 30.0),      # window and softcap
+    (2, 333, 333, 4, 2, 32, True, 50, 20.0),        # D 32
+    (2, 130, 70, 4, 1, 16, False, 80, None),        # D 16, S > T
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WGMMA_CASES,
+                         ids=[str(c) for c in WGMMA_CASES])
+def test_wgmma_flash_kernel_matches_ref_on_card(cuda, case):
+    b, s, t, h, kv, d, causal, window, cap = case
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda,
+                           dtype=torch.bfloat16)
+               for shape in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d)))
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=cap)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                               softcap=cap)
+    assert got.shape == q.shape and got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_decode_kernel_splits_the_serving_shape_on_card(cuda):
+    """At the serving path's shape (8 rows, 4 kv heads, T 1024) the
+    wrapper runs a cluster of more than one block per (row, kv head), and
+    the result still matches the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(8, 28, 128, generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(8, 1024, 4, 128, generator=g, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(2))
+    lens = torch.tensor([500, 390, 326, 202, 221, 85, 102, 72],
+                        dtype=torch.int32, device=cuda)
+    assert da_ops._n_split(q, 8 * 4, 1024, None) > 1
+    got = da_ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    want = decode_attention_ref(q, k, v, lens)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+
+
+# chunks of a cluster left empty: lengths 0 and 1 among longer rows, a
+# window ending inside one chunk, T 4096 with one row near T - 1 and the
+# others short: (b, h, kv, d, positions, page size, lengths, window)
+EMPTY_CHUNK_CASES = [
+    (4, 28, 4, 128, 1024, 16, (0, 1, 2, 700), None),
+    (4, 28, 4, 128, 1024, 16, (300, 900, 1023, 64), 70),
+    (4, 28, 4, 128, 4096, 16, (4095, 3, 10, 100), None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", EMPTY_CHUNK_CASES,
+                         ids=[str(c[4:]) for c in EMPTY_CHUNK_CASES])
+@pytest.mark.parametrize("entry", ["dense", "quant", "paged", "paged_quant",
+                                   "partials"])
+def test_decode_entries_with_empty_chunks_on_card(cuda, case, entry):
+    b, h, kv, d, n_pos, ps, lengths, window = case
+    assert da_ops._n_split(torch.empty(0, device=cuda), b * kv, n_pos,
+                           window) > 1
+    if entry in ("quant", "paged", "paged_quant"):
+        x = _variant_inputs(cuda, case[:7], entry, torch.bfloat16, seed=8)
+        got = _variant_call(x, entry, window=window)
+        torch.cuda.synchronize()
+        want = _variant_call(x, entry, plain=True, window=window)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[torch.bfloat16],
+                                   rtol=TOL[torch.bfloat16])
+        return
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn(b, h, d, generator=g, device=cuda, dtype=torch.bfloat16)
+    k, v = (torch.randn(b, n_pos, kv, d, generator=g, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    if entry == "dense":
+        got = da_ops.decode_attention(q, k, v, lens, window=window)
+        torch.cuda.synchronize()
+        want = decode_attention_ref(q, k, v, lens, window=window)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[torch.bfloat16],
+                                   rtol=TOL[torch.bfloat16])
+        return
+    got = da_ops.decode_attention_partials(q, k, v, lens, window=window)
+    torch.cuda.synchronize()
+    want = decode_attention_partials_ref(q, k, v, lens, window=window)
+    for x, y in zip(got, want):
+        assert (x - y).abs().max().item() <= 1e-4 * max(
+            1.0, y.abs().max().item())

@@ -321,8 +321,8 @@ def test_mesh_guards(qwen):
                                 impl="seq_shard")
 
 
-def test_sampled_serving_under_a_mesh_uses_the_plain_epilogue(qwen,
-                                                             monkeypatch):
+def test_sampled_serving_under_a_mesh_runs_the_sampling_wrapper(
+        qwen, monkeypatch):
     """Fused sampling under a mesh goes through the sampling kernel's
     wrapper once an admission and once a round, as without a mesh: the
     reference takes its plain epilogue there because its logits arrive
