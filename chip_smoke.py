@@ -180,17 +180,45 @@ DECODE_CASES = [
     ("tiny_T40", 2, 4, 2, 16, 40, (17, 39), None, None, torch.bfloat16),
 ]
 
-# fused sampling at the serving path's (8 slots, qwen2 vocabulary) shape;
-# "path" is the sampled serving run's setting and is timed
+# fused sampling: (name, B, V, settings, n_split (None: the wrapper's
+# pick), input pattern). The first case is the sampled serving run's
+# setting at its shape (8 slots, qwen2's vocabulary) and fills the kernels
+# line; every case is timed. Patterns: "randn" (N(0, 9) logits), "ties"
+# (5 tokens above, then 60 tied at the 50th value), "ties_across_slices"
+# (about 100 tied at the 50th value on both sides of every 5-, 7-, 8- and
+# 16-way slice boundary), "argmax_tie" (y ties exactly in two slices: zero
+# noise), "zeros" (-0.0 and +0.0 in several slices are the k-th value).
 VOCAB = 152064
+PATH_SAMPLING = serve_cluster.SAMPLING  # temperature 0.8, top-k 50, top-p 0.95
 SAMPLE_CASES = [
-    ("path", dict(temperature=0.8, top_k=50, top_p=0.95)),
-    ("temperature", dict(temperature=0.8)),
-    ("top_k", dict(temperature=0.8, top_k=50)),
-    ("top_p", dict(temperature=0.8, top_p=0.9)),
-    ("top_k_ties", dict(temperature=1.0, top_k=50)),
-    ("top_p_zero", dict(temperature=1.0, top_p=0.0)),
-    ("top_p_negative", dict(temperature=1.0, top_p=-0.5)),
+    ("path", 8, VOCAB, PATH_SAMPLING, None, "randn"),
+    ("temperature", 8, VOCAB, dict(temperature=0.8), None, "randn"),
+    ("top_k", 8, VOCAB, dict(temperature=0.8, top_k=50), None, "randn"),
+    ("top_p", 8, VOCAB, dict(temperature=0.8, top_p=0.9), None, "randn"),
+    ("top_k_ties", 8, VOCAB, dict(temperature=1.0, top_k=50), None, "ties"),
+    ("top_p_zero", 8, VOCAB, dict(temperature=1.0, top_p=0.0), None,
+     "randn"),
+    ("top_p_negative", 8, VOCAB, dict(temperature=1.0, top_p=-0.5), None,
+     "randn"),
+    ("path_n7", 8, VOCAB, PATH_SAMPLING, 7, "randn"),  # V % 7 != 0
+    ("path_n5", 8, VOCAB, PATH_SAMPLING, 5, "randn"),  # the logits staged
+    ("path_n1", 8, VOCAB, PATH_SAMPLING, 1, "randn"),  # a block a row
+    ("admission_b1", 1, VOCAB, PATH_SAMPLING, None, "randn"),
+    ("vocab_30522", 8, 30522, PATH_SAMPLING, None, "randn"),
+    ("vocab_256000", 8, 256000, PATH_SAMPLING, None, "randn"),
+    ("device_memory", 2, 1_000_000, PATH_SAMPLING, None, "randn"),
+    ("top_k_1", 8, VOCAB, dict(temperature=0.8, top_k=1), None, "randn"),
+    ("top_k_v", 2, VOCAB, dict(temperature=0.8, top_k=VOCAB), None,
+     "randn"),
+    # the k-th value deep in the row
+    ("top_k_quarter", 2, VOCAB, dict(temperature=0.8, top_k=VOCAB // 4),
+     None, "randn"),
+    ("ties_across_slices", 4, VOCAB, dict(temperature=1.0, top_k=50), None,
+     "ties_across_slices"),
+    ("argmax_tie_across_slices", 4, VOCAB, dict(temperature=0.9, top_k=3),
+     None, "argmax_tie"),
+    ("signed_zeros", 4, VOCAB, dict(temperature=0.8, top_k=4), None,
+     "zeros"),
 ]
 # A top-p flip (kernel and plain version keep different tokens) is allowed
 # only at a near-tie: the token's probability within this relative
@@ -549,9 +577,42 @@ def profile_round(fn, n_prof: int = 3,
                         for name in names}}
 
 
-def kernel_device_ms(fn, name: str, n: int = 20) -> float:
+def l2_flush_buffer(dev) -> torch.Tensor:
+    """A buffer five times the H100's 50 MB L2 cache: writing it evicts
+    whatever a kernel read before."""
+    return torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+
+def profile_ops(fn, n: int = 5) -> dict:
+    """Device time per call of ``fn``, each kernel counted once: in all
+    (busy_ms); by the aten op that launched it (``ops_ms``, the op's own
+    kernels, not its children's); by kernel name (``kernels_ms``, the
+    hand-written kernels included: ctypes launches have no op)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    return {"busy_ms": sum(e.self_device_time_total for e in kernels)
+            / n / 1e3,
+            "ops_ms": {e.key: e.self_device_time_total / n / 1e3
+                       for e in events if e.device_type == DeviceType.CPU
+                       and e.self_device_time_total > 0},
+            "kernels_ms": {e.key[:90]: e.self_device_time_total / n / 1e3
+                           for e in kernels}}
+
+
+def kernel_device_ms(fn, name: str, n: int = 20, flush=None) -> float:
     """Mean device time per call of ``fn`` spent in kernels whose name
-    holds ``name``, from the profiler (after two warm-up calls)."""
+    holds ``name``, from the profiler (after two warm-up calls). With
+    ``flush`` (:func:`l2_flush_buffer`), the buffer is written before each
+    call, so the call reads its inputs from device memory (cold L2)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
@@ -560,6 +621,8 @@ def kernel_device_ms(fn, name: str, n: int = 20) -> float:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
@@ -670,38 +733,109 @@ def check_flips(name, kw, flips):
                              f"{bad}")
 
 
+def sample_case_inputs(pattern, b, v, kw, g, dev):
+    """The epilogue's inputs for a SAMPLE_CASES pattern, and the tokens a
+    row may take (None: any)."""
+    logits = torch.randn(b, v, generator=g, device=dev) * 3
+    allowed = None
+    if pattern == "ties":
+        logits[:, :5] = 30.0
+        logits[:, 100:160] = 25.0
+        allowed = set(range(5)) | set(range(100, 160))
+    elif pattern == "ties_across_slices":
+        ties = sorted({i * -(-v // n) + d for n in (5, 7, 8, 16)
+                       for i in range(1, n) for d in (-2, -1, 0, 1)})
+        top = [11, v // 4 + 1, v // 2 + 7, 4 * v // 5 + 3, v - 3]
+        logits -= 20
+        logits[:, top] = 30.0
+        logits[:, ties] = 25.0
+        allowed = set(ties) | set(top)
+    elif pattern == "argmax_tie":
+        per = -(-v // 8)
+        logits.zero_()
+        logits[:, [per + 3, 6 * per + 1]] = 7.0
+        allowed = {per + 3}
+    elif pattern == "zeros":
+        top = [17, v // 2 + 5, v - 7]
+        zeros = [5, v // 16 + 1, v // 8 + 1, v // 2, v - 1]
+        logits.fill_(-1.0)
+        logits[:, top] = 2.0
+        for i, x in zip(zeros, (-0.0, 0.0, -0.0, 0.0, -0.0)):
+            logits[:, i] = x
+        allowed = set(zeros) | set(top)
+    inputs = sampling_inputs(logits, kw, g)
+    if pattern == "argmax_tie":
+        inputs["gumbel"].zero_()
+    return inputs, allowed
+
+
+def sample_kernel_ms(inputs, flush, n_split=None) -> tuple:
+    """The sampling kernel alone on ``inputs`` (device ms a call under the
+    profiler): warm (inputs left in L2) and cold (L2 flushed first)."""
+    def call():
+        return fs.fused_sample_kernel(**inputs, n_split=n_split)
+    return (kernel_device_ms(call, "sample_kernel"),
+            kernel_device_ms(call, "sample_kernel", flush=flush))
+
+
+def keys_under_first_digit(inputs) -> tuple:
+    """Per row of an epilogue call with top-k: how many keys of z share
+    the k-th value's first radix digit (its sign and top 7 exponent
+    bits), in the row and in the fullest of the kernel's slices. The top-k
+    steps after the first count these keys."""
+    z = inputs["logits"] / inputs["temperature"]
+    kth = torch.topk(z, inputs["top_k"], dim=-1).values[:, -1:]
+
+    def digit(x):
+        u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        u = torch.where(u == 0x80000000, 0, u)
+        key = torch.where(u >= 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+        return key >> 24
+
+    under = (digit(z) == digit(kth)).int()
+    b, v = z.shape
+    n = fs.choose_sample_split(b, v, fs._sm_count(z.device.index or 0))
+    per = -(-v // n)
+    padded = F.pad(under, (0, n * per - v))
+    return (under.sum(-1).tolist(),
+            padded.view(b, n, per).sum(-1).amax(-1).tolist())
+
+
 def check_sampling_kernel(dev) -> dict:
-    """Phase (a2), the sampling epilogue at (8, vocab): tokens equal the
+    """Phase (a2), the sampling epilogue: case by case, tokens equal the
     plain version's except at top-p near-ties (none allowed without
-    top-p); timed at the sampled serving path's setting."""
+    top-p), and the kernel alone timed under the profiler with its inputs
+    in L2 (warm) and with L2 flushed before each call (cold); the serving
+    path's case also on CUDA events through the wrapper."""
+    flush = l2_flush_buffer(dev)
+    sms = fs._sm_count(dev.index or 0)
     main = None
-    for name, kw in SAMPLE_CASES:
+    for name, b, v, kw, n_split, pattern in SAMPLE_CASES:
         g = torch.Generator(device=dev).manual_seed(len(name))
-        logits = torch.randn(8, VOCAB, generator=g, device=dev) * 3
-        if name == "top_k_ties":  # 5 above, then 60 tied at the 50th value
-            logits[:, :5] = 30.0
-            logits[:, 100:160] = 25.0
+        used = n_split or fs.choose_sample_split(b, v, sms)
         flips, rows = [], 0
         for _ in range(4):
-            inputs = sampling_inputs(logits, kw, g)
-            got = fs.fused_sample_kernel(**inputs)
+            inputs, allowed = sample_case_inputs(pattern, b, v, kw, g, dev)
+            got = fs.fused_sample_kernel(**inputs, n_split=n_split)
             torch.cuda.synchronize()
             want = fs.fused_sample_ref(**inputs)
             flips += sampling_flips(inputs, got, want)
-            rows += logits.shape[0]
-            if name == "top_k_ties":  # every tie stays eligible
-                kept = set(range(5)) | set(range(100, 160))
-                assert all(int(x) in kept for x in want.tolist())
+            rows += b
+            if allowed is not None and not set(want.tolist()) <= allowed:
+                raise AssertionError(f"{name}: the plain version drew "
+                                     f"{want.tolist()}")
             if name.startswith("top_p_") and not flips:
-                assert torch.equal(got, logits.argmax(-1).int())
+                assert torch.equal(got, inputs["logits"].argmax(-1).int())
         check_flips(name, kw, flips)
-        print(f"kernel fused_sample {name} {kw}: {rows} rows, "
-              f"{len(flips)} flips vs plain "
-              f"{[round(min(f[1]), 9) for f in flips]} (|p - cutoff| / "
-              f"cutoff) ok")
+        warm, cold = sample_kernel_ms(inputs, flush, n_split)
+        print(f"kernel fused_sample {name} ({b}, {v}) {kw} n_split={used} "
+              f"({fs.staging(v, used)} staged): {rows} rows, {len(flips)} "
+              f"flips vs plain {[round(min(f[1]), 9) for f in flips]} "
+              f"(|p - cutoff| / cutoff) ok; the kernel alone {warm:.4f} ms "
+              f"warm, {cold:.4f} ms cold L2")
         if main is None:
-            main = (inputs, len(flips))
-    inputs, n_flips = main
+            main = (inputs, len(flips), used, warm, cold)
+    inputs, n_flips, n_split, warm, cold = main
     ms = cuda_ms(lambda: fs.fused_sample_kernel(**inputs), iters=20)
     plain_ms = cuda_ms(lambda: fs.fused_sample_ref(**inputs), iters=20)
     b, v = inputs["logits"].shape
@@ -712,8 +846,10 @@ def check_sampling_kernel(dev) -> dict:
     bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                 >= ops / PEAK_FLOPS[torch.float32] else "operations")
     print(f"kernel fused_sample at the serving path's shape ({b}, {v}) "
-          f"{SAMPLE_CASES[0][1]}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"no single library call, bound {bound_ms:.5f} ms ({bound_by})")
+          f"{PATH_SAMPLING}: {ms:.4f} ms on events through the wrapper, "
+          f"the kernel alone {warm:.4f} ms warm / {cold:.4f} ms cold L2 "
+          f"(n_split={n_split}), plain {plain_ms:.4f} ms, no single library "
+          f"call, bound {bound_ms:.5f} ms ({bound_by})")
     return {"name": "fused_sample", "route": "cuda",
             "source": "src/repro_torch/kernels/decode_attention/"
                       "fused_sampling.cu",
@@ -721,7 +857,9 @@ def check_sampling_kernel(dev) -> dict:
                         "fused_sampling.py:171",
             # a sampler's error is its tokens: flips vs the plain version
             "max_abs_err": float(n_flips), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "n_split": n_split, "kernel_device_ms": warm,
+            "kernel_device_ms_cold": cold}
 
 
 # ---------------------------------------------------------------------------
@@ -1297,8 +1435,27 @@ def run_generation(dev) -> tuple:
                             **serve_cluster.SAMPLING)
     flips = spy.flips()
     n_calls = len(spy.calls)
+    # the serving path's own epilogue inputs: where the k-th value falls,
+    # and the kernel alone on the first full round's
+    under_row, under_slice = [], []
+    for inputs, _ in spy.calls:
+        rows, fullest = keys_under_first_digit(inputs)
+        under_row += rows
+        under_slice += fullest
+    round_inputs = next(i for i, _ in spy.calls
+                        if i["logits"].shape[0] == GEN.n_slots)
     del spy
     check_flips("serving path", serve_cluster.SAMPLING, flips)
+    serving_warm, serving_cold = sample_kernel_ms(
+        round_inputs, l2_flush_buffer(dev))
+    print(f"fused sampled serving path: keys under the k-th value's first "
+          f"radix digit over {len(under_row)} rows of {n_calls} epilogue "
+          f"calls: per row min {min(under_row)} median "
+          f"{sorted(under_row)[len(under_row) // 2]} max {max(under_row)}, "
+          f"in the fullest slice max {max(under_slice)}; the kernel alone "
+          f"on the first full round's inputs "
+          f"{tuple(round_inputs['logits'].shape)} {serving_warm:.4f} ms "
+          f"warm, {serving_cold:.4f} ms cold L2")
     # the same seed through the host sampler: the same noise draws
     host = serve_phase(engine, params, cfg, fused_sampling=False,
                        **serve_cluster.SAMPLING)
@@ -1379,6 +1536,29 @@ def run_generation(dev) -> tuple:
           f"decode kernel {decode_kernel_ms:.4f} ms of device time a round;"
           f" top kernels (us/round) {breakdown}")
 
+    # a sampled round: where its epilogue's device time goes, the sampling
+    # kernel against the torch ops that make its cutoff (softmax, sort,
+    # cumsum, top-k) and its noise (uniform, log)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sprof = profile_round(lambda: engine.decode_sample(
+        params, check, tok, gen, **serve_cluster.SAMPLING),
+        names=("decode_kernel", "sample_kernel"))
+    round_logits, _ = engine.decode(params, check, tok)
+    epilogue = profile_ops(lambda: fs.fused_sample(
+        round_logits, gen, **serve_cluster.SAMPLING))
+    epi_kernel_ms = sum(ms for k, ms in epilogue["kernels_ms"].items()
+                        if "sample_kernel" in k)
+    print(f"sampled decode round (8 slots, {serve_cluster.SAMPLING}), "
+          f"profiled: device busy {sprof['busy_ms']:.3f} ms in "
+          f"{sprof['launches']:.0f} launches, the sampling kernel "
+          f"{sprof['by_name']['sample_kernel']:.4f} ms; its epilogue alone "
+          f"{epilogue['busy_ms']:.4f} ms of device time: the kernel "
+          f"{epi_kernel_ms:.4f} ms, the cutoff and noise ops "
+          f"{epilogue['busy_ms'] - epi_kernel_ms:.4f} ms; by op (ms) "
+          f"{json.dumps({k: round(v, 5) for k, v in epilogue['ops_ms'].items()})}"
+          f"; by kernel (ms) "
+          f"{json.dumps({k: round(v, 5) for k, v in epilogue['kernels_ms'].items()})}")
+
     def rates(res):
         bk = res["bucket_s"]
         r = res["batcher"]
@@ -1398,6 +1578,8 @@ def run_generation(dev) -> tuple:
         "prompt_lengths": n_shapes, "cache_mb": cache_bytes / 1e6,
         "memory_in_use_gb": live[-1] / 1e9, "max_memory_allocated_gb":
         peak / 1e9, "epilogue_calls": n_calls, "top_p_flips": len(flips),
+        "serving_keys_under_first_digit_max": max(under_row),
+        "serving_round_sample_kernel_ms": [serving_warm, serving_cold],
         "streams_differing_fused_vs_host": len(differ),
         "decode_layer_rel_err_max": max(layer_err),
         "plain_logit_err_vs_fp64": noise, "kernel_logit_err_vs_fp64":
@@ -1407,7 +1589,12 @@ def run_generation(dev) -> tuple:
         "round_kernel_launches": launches_per_round,
         "round_decode_kernel_ms": decode_kernel_ms,
         "profiled_round_wall_ms": prof["window_ms"],
-        "idle_share": idle, "round_breakdown_us": breakdown})
+        "idle_share": idle, "round_breakdown_us": breakdown,
+        "sampled_round_device_busy_ms": sprof["busy_ms"],
+        "sampled_round_sample_kernel_ms": sprof["by_name"]["sample_kernel"],
+        "epilogue_device_ms": epilogue["busy_ms"],
+        "epilogue_kernel_ms": epi_kernel_ms,
+        "epilogue_ops_ms": epilogue["ops_ms"]})
     print("generate " + json.dumps(out))
     counts = {k: greedy["counts"][k] + fused["counts"][k]
               + host["counts"][k] for k in greedy["counts"]}
@@ -2444,7 +2631,7 @@ def main():
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "launches_by_path", "n_split",
-             "kernel_device_ms", "timed"]
+             "kernel_device_ms", "kernel_device_ms_cold", "timed"]
     print(json.dumps({"kernels": [{key: k[key] for key in order if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,9 @@ Counterpart of ``repro.kernels.decode_attention.fused_sampling``:
   * :func:`fused_sample_kernel` — the epilogue: the CUDA kernel
     (``fused_sampling.cu``) on CUDA tensors, the plain version on CPU
     tensors. Noise and cutoff are explicit inputs, as in the reference.
+    The kernel splits each row over a thread-block cluster of ``n_split``
+    blocks (:func:`choose_sample_split`), each holding its slice of the
+    row in shared memory (:func:`staging`).
   * :func:`fused_sample` — the entry point the serving engine calls.
 
 Randomness: ``jax.random`` keys become a ``torch.Generator``. Gumbel noise
@@ -32,6 +35,7 @@ lies within that margin below the cutoff: a near-tie.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Optional
 
@@ -44,6 +48,14 @@ SOURCE = Path(__file__).with_name("fused_sampling.cu")
 # The kernel's relative top-p margin (TOP_P_SLACK in fused_sampling.cu): it
 # drops a token only when its p is below the cutoff by more than this.
 TOP_P_SLACK = 2.0 ** -14
+
+# The kernel's cluster: at most CLUSTER_LIMIT blocks a row (the portable
+# cluster size, MAX_SPLIT in fused_sampling.cu), each with at least
+# MIN_SLICE elements where the row has them. MAX_DYN_SMEM is the kernel's
+# dynamic shared memory (MAX_DYN_SMEM in fused_sampling.cu).
+CLUSTER_LIMIT = 8
+MIN_SLICE = 4096
+MAX_DYN_SMEM = 192 * 1024
 
 launches = 0  # kernel launches; callers reset it to count one run
 
@@ -114,23 +126,56 @@ def fused_sample_ref(logits, gumbel, cutoff, *, temperature: float,
     return torch.argmax(y, dim=-1).to(torch.int32)  # first index of the max
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
-    fn = lib.fused_sample_fwd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                       + [ctypes.c_float] + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib
+def staging(v: int, n_split: int) -> str:
+    """What the kernel keeps in shared memory for a row of ``v`` split
+    over ``n_split`` blocks (``staging`` in fused_sampling.cu): "both"
+    (the logits and the noise slice), "logits", or "none" (every pass
+    reads device memory)."""
+    per = -(-v // n_split)
+    region = (per + 6) // 4 * 4  # 16-byte alignment slack, in floats
+    if 8 * region <= MAX_DYN_SMEM:
+        return "both"
+    return "logits" if 4 * region <= MAX_DYN_SMEM else "none"
+
+
+def choose_sample_split(b: int, v: int, sms: int) -> int:
+    """Blocks of one cluster per row, from the batch, the vocabulary and
+    the card's SM count (never the data): at most CLUSTER_LIMIT, no more
+    blocks than fill the card once, each at least MIN_SLICE elements;
+    and, up to CLUSTER_LIMIT, enough that both slices fit in a block's
+    shared memory."""
+    n = max(1, min(CLUSTER_LIMIT, sms // b, v // MIN_SLICE))
+    while n < CLUSTER_LIMIT and staging(v, n) != "both":
+        n += 1
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = build.load(SOURCE).fused_sample_fwd
+    # (logits, gumbel, cutoff, out, batch, v, temperature, top_k,
+    #  use_top_p, n_split, stream)
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def fused_sample_kernel(logits, gumbel, cutoff, *, temperature: float,
                         top_k: Optional[int] = None,
-                        use_top_p: bool = False):
+                        use_top_p: bool = False,
+                        n_split: Optional[int] = None):
     """The sampling epilogue. logits/gumbel: (B, V) fp32; cutoff: (B, 1)
     fp32 (ignored unless ``use_top_p``). Returns (B,) int32 token ids.
-    Requires ``temperature > 0`` (greedy is a plain argmax, no kernel)."""
+    Requires ``temperature > 0`` (greedy is a plain argmax, no kernel).
+    ``n_split`` (1 .. 8) sets the kernel's blocks per row; by default
+    :func:`choose_sample_split` picks it. The plain version ignores it."""
     if logits.ndim != 2 or gumbel.shape != logits.shape:
         raise ValueError(f"want logits and gumbel (B, V); got "
                          f"{tuple(logits.shape)}, {tuple(gumbel.shape)}")
@@ -142,6 +187,9 @@ def fused_sample_kernel(logits, gumbel, cutoff, *, temperature: float,
         raise ValueError(f"temperature must be > 0, got {temperature}")
     if top_k is not None and not 1 <= top_k <= v:
         raise ValueError(f"top_k must lie in [1, {v}], got {top_k}")
+    if n_split is not None and not 1 <= n_split <= CLUSTER_LIMIT:
+        raise ValueError(f"n_split must lie in [1, {CLUSTER_LIMIT}], got "
+                         f"{n_split}")
     if all(x.device.type == "cpu" for x in (logits, gumbel, cutoff)):
         return fused_sample_ref(logits, gumbel, cutoff,
                                 temperature=temperature, top_k=top_k,
@@ -157,14 +205,16 @@ def fused_sample_kernel(logits, gumbel, cutoff, *, temperature: float,
             raise ValueError(f"{name} is {x.dtype}: the kernel takes fp32")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    lib = _library()
-    out = torch.empty(b, dtype=torch.int32, device=logits.device)
-    with torch.cuda.device(logits.device):
-        err = lib.fused_sample_fwd(
-            logits.data_ptr(), gumbel.data_ptr(), cutoff.data_ptr(),
-            out.data_ptr(), b, v, float(temperature), top_k or 0,
-            int(use_top_p),
-            torch.cuda.current_stream(logits.device).cuda_stream)
+    dev = logits.device
+    if n_split is None:
+        n_split = choose_sample_split(b, v, _sm_count(dev.index or 0))
+    fn = _kernel()
+    out = torch.empty(b, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(logits.data_ptr(), gumbel.data_ptr(), cutoff.data_ptr(),
+                 out.data_ptr(), b, v, float(temperature), top_k or 0,
+                 int(use_top_p), n_split,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fused_sample kernel launch failed: CUDA error "
                            f"{err}")

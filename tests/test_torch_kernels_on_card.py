@@ -190,6 +190,122 @@ def test_sampling_kernel_top_p_margin_on_card(cuda, factor, kernel_tok,
     assert got.tolist() == [kernel_tok] and want.tolist() == [plain_tok]
 
 
+# The sampling kernel's cluster split at the serving path's vocabulary and
+# on its edges: (name, B, V, settings, n_split (None: the wrapper's pick),
+# input pattern). Patterns: "randn" (N(0, 9) logits), "ties" (about 100
+# tokens tie at the 50th value, on both sides of every 5-, 7-, 8- and
+# 16-way slice boundary), "argmax_tie" (y ties exactly in two slices: zero noise),
+# "zeros" (-0.0 and +0.0 in several slices are the k-th value).
+PATH_KW = dict(temperature=0.8, top_k=50, top_p=0.95)
+SPLIT_SAMPLE_CASES = [
+    ("path", 8, 152064, PATH_KW, None, "randn"),
+    ("path_n7", 8, 152064, PATH_KW, 7, "randn"),     # V % 7 != 0
+    ("path_n1", 8, 152064, PATH_KW, 1, "randn"),     # stages nothing
+    ("path_n5", 8, 152064, PATH_KW, 5, "randn"),     # stages the logits
+    ("admission_b1", 1, 152064, PATH_KW, None, "randn"),
+    ("vocab_30522", 8, 30522, PATH_KW, None, "randn"),
+    ("vocab_5000", 4, 5000, PATH_KW, None, "randn"),
+    ("vocab_256000", 8, 256000, PATH_KW, None, "randn"),
+    ("device_memory", 2, 1_000_000, PATH_KW, None, "randn"),
+    ("top_k_1", 8, 152064, dict(temperature=0.8, top_k=1), None, "randn"),
+    ("top_k_v", 2, 152064, dict(temperature=0.8, top_k=152064), None,
+     "randn"),
+    # the k-th value deep in the row
+    ("top_k_quarter", 2, 152064, dict(temperature=0.8, top_k=38016), None,
+     "randn"),
+    ("ties_across_slices", 4, 152064, dict(temperature=1.0, top_k=50), None,
+     "ties"),
+    ("argmax_tie_across_slices", 4, 152064, dict(temperature=0.9, top_k=3),
+     None, "argmax_tie"),
+    ("signed_zeros", 4, 152064, dict(temperature=0.8, top_k=4), None,
+     "zeros"),
+    ("top_p_zero", 4, 152064, dict(temperature=1.0, top_p=0.0), None,
+     "randn"),
+    ("top_p_negative", 4, 152064, dict(temperature=1.0, top_k=50,
+                                       top_p=-0.5), None, "randn"),
+]
+
+
+def _split_sample_inputs(cuda, b, v, kw, pattern, g):
+    """Logits and noise for a SPLIT_SAMPLE_CASES pattern, the cutoff as
+    ``fused_sample`` makes it, and the tokens each row may take (None:
+    any)."""
+    logits = torch.randn(b, v, generator=g, device=cuda) * 3
+    noise = fs.gumbel_noise((b, v), g, cuda)
+    allowed = None
+    if pattern == "ties":
+        bounds = sorted({i * -(-v // n) + d for n in (5, 7, 8, 16)
+                         for i in range(1, n) for d in (-2, -1, 0, 1)})
+        logits -= 20
+        logits[:, [11, 70001, v - 3, 40000, 123456]] = 30.0
+        logits[:, bounds] = 25.0
+        allowed = set(bounds) | {11, 70001, v - 3, 40000, 123456}
+    elif pattern == "argmax_tie":
+        per = -(-v // 8)
+        logits.zero_()
+        logits[:, [per + 3, 6 * per + 1]] = 7.0
+        noise.zero_()
+        allowed = {per + 3}
+    elif pattern == "zeros":
+        logits.fill_(-1.0)
+        logits[:, [17, 90000, 150000]] = 2.0
+        zeros = [5, 9505, 19009, 76033, 152063]
+        for i, x in zip(zeros, (-0.0, 0.0, -0.0, 0.0, -0.0)):
+            logits[:, i] = x
+        allowed = set(zeros) | {17, 90000, 150000}
+    top_k, top_p = kw.get("top_k"), kw.get("top_p")
+    use_top_p = top_p is not None and top_p < 1.0
+    cutoff = (fs.nucleus_cutoff(fs.apply_filters(
+        logits, temperature=kw["temperature"], top_k=top_k), top_p)
+        if use_top_p else torch.zeros(b, 1, device=cuda))
+    return dict(logits=logits, gumbel=noise, cutoff=cutoff,
+                temperature=kw["temperature"], top_k=top_k,
+                use_top_p=use_top_p), allowed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SPLIT_SAMPLE_CASES,
+                         ids=[c[0] for c in SPLIT_SAMPLE_CASES])
+def test_sampling_kernel_split_matches_ref_on_card(cuda, case):
+    """Tokens equal the plain epilogue's on the same inputs at every
+    cluster size and staging mode the wrapper or the case picks; with
+    top-p a row may differ only at a near-tie (a token's p within twice
+    the kernel's margin of the cutoff)."""
+    name, b, v, kw, n_split, pattern = case
+    g = torch.Generator(device=cuda).manual_seed(len(name))
+    for _ in range(2):
+        inputs, allowed = _split_sample_inputs(cuda, b, v, kw, pattern, g)
+        before = fs.launches
+        got = fs.fused_sample_kernel(**inputs, n_split=n_split)
+        torch.cuda.synchronize()
+        assert fs.launches == before + 1
+        want = fs.fused_sample_ref(**inputs)
+        if allowed is not None:
+            assert set(want.tolist()) <= allowed
+        if not inputs["use_top_p"]:
+            assert torch.equal(got, want)
+            continue
+        p = torch.softmax(fs.apply_filters(
+            inputs["logits"], temperature=kw["temperature"],
+            top_k=kw.get("top_k")), dim=-1)
+        for r in torch.nonzero(got != want).flatten().tolist():
+            c = float(inputs["cutoff"][r, 0])
+            gap = min(abs(float(p[r, int(x[r])]) - c) for x in (got, want))
+            assert gap <= 2 * fs.TOP_P_SLACK * c, (name, r, gap / c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_split", range(1, 9))
+def test_sampling_kernel_every_cluster_size_on_card(cuda, n_split):
+    """Every cluster size the kernel takes draws the plain epilogue's
+    tokens, on a vocabulary that no size above 1 divides."""
+    g = torch.Generator(device=cuda).manual_seed(n_split)
+    inputs, _ = _split_sample_inputs(cuda, 4, 30011, dict(
+        temperature=0.7, top_k=20), "randn", g)
+    got = fs.fused_sample_kernel(**inputs, n_split=n_split)
+    assert torch.equal(got, fs.fused_sample_ref(**inputs))
+
+
 @pytest.mark.gpu
 def test_engine_decode_runs_the_kernels_on_card(cuda):
     cfg = configs.smoke("qwen2-7b")
