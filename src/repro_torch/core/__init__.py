@@ -1,6 +1,6 @@
 """The paper's contribution: serverless-style parallel batch inference.
 
-Counterpart of ``repro.core`` (all of it but the calibrated simulator).
+Counterpart of ``repro.core``.
 
 Public API:
   decompose / merge            — monolithic -> parallel transformation
@@ -11,6 +11,7 @@ Public API:
   ServerlessFunction           — Lambda analogue over the serving engine
   ArtifactStore                — EFS analogue with IO accounting
   AWSPriceBook / TPUPriceBook  — Eq (1)/(2) + chip-seconds
+  run_monolithic / run_parallel — the calibrated Fig. 2 simulator
 """
 from repro_torch.core.cost_model import AWSPriceBook, TPUPriceBook, price_report  # noqa: F401
 from repro_torch.core.decompose import coverage_ok, decompose, merge  # noqa: F401
@@ -21,3 +22,6 @@ from repro_torch.core.orchestrator import (ElasticPolicy, Orchestrator,  # noqa:
                                            OrchestratorConfig)
 from repro_torch.core.store import ArtifactStore  # noqa: F401
 from repro_torch.core.worker import LatencyModel, ServerlessFunction  # noqa: F401
+from repro_torch.core.simulator import (PAPER_BATCH_SIZES,  # noqa: F401
+                                       CaseStudyConfig, run_monolithic,
+                                       run_parallel, run_sweep)
