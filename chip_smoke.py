@@ -57,6 +57,18 @@ points and checks what comes out:
   (m)  ``launch.serve.main`` as a user runs it, with no ``--device``:
        ``--router``, ``--calibrate`` and ``--http`` at the smoke config
        ``main`` serves.
+  (n)  the batch DAG (``launch.serve.run_batch_dag``) on the full-width
+       ``qwen2-7b`` at the reference CLI's defaults with 64-token prompts:
+       monolithic, parallel, the chaos ladder, a spot mix and all-spot,
+       one digest, equal to one batcher's greedy streams; round times and
+       a calibrated mono/parallel pair;
+  (o)  training the full-width ``distilbert-imdb`` (60 AdamW steps), remat
+       and microbatching against the plain step, the trained classifier
+       through the flash kernel and the plain path, phase (b)'s job on it,
+       and ``examples.sentiment_case_study.main``;
+  (p)  ``launch.train`` and ``examples.train_100m`` as a user runs them,
+       crashed and resumed bit for bit, and the "pod" step with int8
+       gradients on two ranks sharing the card.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Any failed phase raises, so the script exits non-zero and
@@ -65,8 +77,9 @@ prints no result line; so does a machine with no CUDA device.
 Usage (on a machine with one NVIDIA H100 and the CUDA toolkit):
   python3 chip_smoke.py
 
-(``chip_smoke.py --rank-worker SPEC`` is one rank of phase (h), started by
-the script itself.)
+(``chip_smoke.py --rank-worker SPEC`` is one rank of phase (h), and
+``chip_smoke.py --pod-worker SPEC`` one of phase (p), started by the script
+itself.)
 
 Output: the card's ``name, power.limit`` line, the build time, one line per
 kernel check and per phase (with its seconds), a ``{"kernels": [...]}``
@@ -77,8 +90,11 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
+import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -89,6 +105,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# deterministic cuBLAS for the training phases' bit-for-bit checks ((o),
+# (p)): the setting must be in place before the process's first cuBLAS call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -98,9 +117,10 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.benchmarks import fig2  # noqa: E402
 from repro_torch.core import LatencyModel  # noqa: E402
 from repro_torch.core.simulator import CaseStudyConfig  # noqa: E402
-from repro_torch.data import imdb_reviews  # noqa: E402
+from repro_torch.data import TrainLoader, imdb_reviews  # noqa: E402
 from repro_torch.dist import collectives  # noqa: E402
-from repro_torch.examples import serve_cluster  # noqa: E402
+from repro_torch.examples import (  # noqa: E402
+    sentiment_case_study, serve_cluster)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import \
     fused_sampling as fs  # noqa: E402
@@ -117,6 +137,7 @@ from repro_torch.kernels.flash_attention.ref import \
 from repro_torch.launch.mesh import (  # noqa: E402
     init_from_env, make_host_mesh, rank_env, spawn_ranks)
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.serve import run_offline  # noqa: E402
 from repro_torch.models import RunConfig, build as build_model  # noqa: E402
 from repro_torch.models import attention, transformer  # noqa: E402
@@ -125,10 +146,12 @@ from repro_torch.models.transformer import Cache, PagedCache  # noqa: E402
 from repro_torch.obs import lint_prometheus  # noqa: E402
 from repro_torch.router import (  # noqa: E402
     TRAFFIC, CalibratedLatencyModel, EventRouter,
-    QueueDepthPolicy, ReplicaPool, make_requests)
+    QueueDepthPolicy, ReplicaConfig, ReplicaPool, make_requests)
 from repro_torch.serving import Engine, PageAllocator, Request  # noqa: E402
 from repro_torch.tools import trace_report  # noqa: E402
-from repro_torch.tree import tree_leaves_with_path  # noqa: E402
+from repro_torch.training import checkpoint as train_checkpoint  # noqa: E402
+from repro_torch.training import optimizer, train_step  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_leaves_with_path  # noqa: E402
 
 # Published peaks of one H100 SXM at its full 700 W limit (NVIDIA data
 # sheet, dense rates): the least time a call could take is the larger of
@@ -179,6 +202,11 @@ CASES = [
     # qwen2-7b's prefill: causal, RoPE'd q/k, GQA 7, head_dim 128
     ("qwen2_prefill_gqa7", 1, 512, 512, 28, 4, 128, True, None, None,
      torch.bfloat16),
+    # phase (n)'s prefill stage and admissions: one 64-token prompt
+    ("dag_prefill", 1, 64, 64, 28, 4, 128, True, None, None, torch.bfloat16),
+    # phase (o)'s held-out set, classified in one batch by distilbert-imdb
+    ("trained_classify_bidir", 256, 128, 128, 12, 12, 64, False, None, None,
+     torch.bfloat16),
 ]
 # the flash cases that are timed: the offline main path and one qwen2-7b
 # prefill admission
@@ -205,6 +233,10 @@ DECODE_CASES = [
     ("fp32", 3, 8, 2, 32, 300, (10, 299, 150), 64, 20.0, torch.float32),
     ("b1", 1, 28, 4, 128, 1024, (700,), None, None, torch.bfloat16),
     ("tiny_T40", 2, 4, 2, 16, 40, (17, 39), None, None, torch.bfloat16),
+    # phase (n)'s decode round: four slots of a 72-position cache (64-token
+    # prompts, 8 new tokens), a ragged last tile
+    ("dag_round", 4, 28, 4, 128, 72, (64, 66, 69, 71), None, None,
+     torch.bfloat16),
 ]
 
 # fused sampling: (name, B, V, settings, n_split (None: the wrapper's
@@ -2711,29 +2743,46 @@ HTTP_TIMEOUT_S = 300.0
 CLI_HTTP_CLIENTS, CLI_SERVE_S = 6, 10.0
 
 
-class _AdmitSpy:
-    """Counts the engine's admission calls (dense and paged, greedy and
-    fused), each of which prefills one request."""
+# the engine's admission calls (dense and paged, greedy and fused), each of
+# which prefills one request
+ADMISSIONS = ("prefill_into", "prefill_into_sample", "extend_row",
+              "extend_row_sample")
 
-    NAMES = ("prefill_into", "prefill_into_sample", "extend_row",
-             "extend_row_sample")
 
-    def __init__(self, engine):
-        self.engine, self.calls = engine, 0
+class _CallSpy:
+    """Counts the calls of ``names`` on ``target`` (an engine or a module)
+    inside the block: ``by_name`` per name, ``calls`` in all. With
+    ``keep``, ``log`` holds each call's (arguments, result, host
+    seconds)."""
+
+    def __init__(self, target, names=ADMISSIONS, keep=False):
+        self.target, self.names, self.keep = target, names, keep
+        self.calls, self.log = 0, []
+        self.by_name = dict.fromkeys(names, 0)
 
     def __enter__(self):
-        for name in self.NAMES:
-            fn = getattr(self.engine, name)
+        own = vars(self.target)
+        self.saved = {name: own.get(name) for name in self.names}
+        for name in self.names:
+            fn = getattr(self.target, name)
 
-            def counted(*a, _fn=fn, **kw):
+            def counted(*a, _fn=fn, _name=name, **kw):
                 self.calls += 1
-                return _fn(*a, **kw)
-            setattr(self.engine, name, counted)
+                self.by_name[_name] += 1
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                if self.keep:
+                    self.log.append((a, out, time.perf_counter() - t0))
+                return out
+            setattr(self.target, name, counted)
         return self
 
     def __exit__(self, *exc):
-        for name in self.NAMES:
-            delattr(self.engine, name)
+        for name, fn in self.saved.items():
+            if fn is None:          # a method of the target's class
+                delattr(self.target, name)
+            else:
+                setattr(self.target, name, fn)
 
 
 def routed(engine, params, cfg, label, tag="(j)", **kw) -> dict:
@@ -2744,7 +2793,7 @@ def routed(engine, params, cfg, label, tag="(j)", **kw) -> dict:
     buckets = engine.compile_count
     torch.cuda.synchronize()
     reset_counts()
-    with _AdmitSpy(engine) as spy:
+    with _CallSpy(engine) as spy:
         runs = serve.run_router(cfg, engine=engine, params=params,
                                 **dict(ROUTER, **kw))
     torch.cuda.synchronize()
@@ -3174,6 +3223,596 @@ def run_cli(dev) -> dict:
     return {f"cli_{label.lstrip('-')}": c for label, c in counts.items()}
 
 
+# ---------------------------------------------------------------------------
+# Phase (n): the batch DAG on the full-width qwen2-7b
+# ---------------------------------------------------------------------------
+
+# the reference CLI's defaults (48 items, shards of 8, 6 workers, 4 slots a
+# replica, 8 new tokens) with the router phases' 64-token prompts
+DAG = dict(dag_items=48, dag_shard_size=8, dag_workers=6, n_slots=4,
+           prompt_len=64, max_new_tokens=8, seed=SEED)
+# the spot mix (4 of the 6 workers spot) and all-spot, each at a rate whose
+# kills land on busy workers on this clock, which is the same on any
+# device: the spot mix's seed lands one at 0.75/s and none at 0.25, 0.5 or
+# 1.0/s; all-spot lands two at 1.0/s
+DAG_SPOT, DAG_SPOT_RATE = 4, 0.75
+DAG_ALL_SPOT_RATE = 1.0
+# the calibrated pair's clock: decode rounds at 1-4 slots (each the mean
+# of DAG_CAL_STEPS calls) and prefills of 64 and 128 tokens, the fastest
+# of DAG_CAL_REPEATS samples a shape
+DAG_CAL_SLOTS, DAG_CAL_STEPS, DAG_CAL_REPEATS = (1, 2, 4), 8, 2
+
+
+def dag_line(label: str, rep, host_s: float) -> str:
+    return (f"{label:<16} host {host_s:.3f} s | modeled wall "
+            f"{rep.wall_s!r} s, busy {rep.busy_s!r} s, cost "
+            f"${rep.cost_usd!r} | {rep.n_tasks} tasks, attempts "
+            f"{rep.attempts_total}, preemptions {rep.n_preemptions}, spawns "
+            f"{rep.n_spawns}, dup commits {rep.n_duplicate_commits}, "
+            f"compiles {rep.compile_count}, digest {rep.digest[:16]}")
+
+
+def run_batch_dag_phase(dev) -> dict:
+    """Phase (n): ``launch.serve.run_batch_dag`` on the full-width
+    qwen2-7b (random weights from SEED, the reference's init) with the
+    engine handed in: monolithic, parallel and the chaos ladder on
+    on-demand pools, then a spot mix and all-spot under live preemptions,
+    each held to the monolithic digest; the reduce output against one
+    batcher's greedy streams; launch counts against the engine's calls;
+    each run's host seconds (timed around ``launch.serve.run_dag``); round
+    times; and the mono/parallel pair again on a clock calibrated from
+    this engine's own rounds (printed, not gated). Returns the DAG path's
+    launch counts."""
+    cfg = configs.get("qwen2-7b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    engine, params = serve.lm_engine(cfg, device=dev, params=params,
+                                     cache_pad=8)
+    rcfg = ReplicaConfig(
+        n_slots=DAG["n_slots"],
+        max_len=DAG["prompt_len"] + DAG["max_new_tokens"])
+    torch.cuda.synchronize()
+    reset_counts()
+    with _CallSpy(engine, ("prefill", "prefill_into", "decode")) as spy, \
+            _CallSpy(serve, ("run_dag",), keep=True) as dag_runs:
+        out = serve.run_batch_dag(cfg, engine=engine, params=params,
+                                  chaos=True, **DAG)
+        data = dag_runs.log[0][0][0]
+        for spot, rate in ((DAG_SPOT, DAG_SPOT_RATE),
+                           (DAG["dag_workers"], DAG_ALL_SPOT_RATE)):
+            serve.run_dag(data, DAG["dag_shard_size"], serve.dag_groups(
+                engine, params, rcfg, DAG["dag_workers"], spot_workers=spot,
+                preempt_rate=rate, seed=SEED))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    calls = dict(spy.by_name)
+
+    n_rungs = out["chaos"]["kills"] + 1
+    labels = (["monolithic", "parallel"]
+              + [f"chaos rung {k}" for k in range(n_rungs)]
+              + ["spot mix", "all-spot"])
+    if len(dag_runs.log) != len(labels):
+        raise AssertionError(f"{len(dag_runs.log)} DAG runs, want "
+                             f"{len(labels)}: {labels}")
+    runs = {label: (rep, host_s)
+            for label, (_, rep, host_s) in zip(labels, dag_runs.log)}
+    mono, par = runs["monolithic"][0], runs["parallel"][0]
+    ladder = [runs[f"chaos rung {k}"][0] for k in range(n_rungs)]
+    print(f"(n) on {card_line()}:")
+    for label, (rep, host_s) in runs.items():
+        print("(n) " + dag_line(label, rep, host_s))
+    print(f"(n) speedup {mono.wall_s / par.wall_s!r}, cost ratio "
+          f"{par.cost_usd / mono.cost_usd!r} on the reference's modeled "
+          f"clock")
+
+    if (not out["outputs_identical"] or not out["chaos"]["parity"]
+            or n_rungs != 5 or out["mono"] != mono.summary()
+            or out["par"] != par.summary()):
+        raise AssertionError(f"DAG: {out}")
+    for k, rep in enumerate(ladder):
+        if (rep.digest != mono.digest or rep.n_preemptions != k
+                or rep.n_duplicate_commits
+                or rep.compile_count != mono.compile_count
+                or rep.n_rows != DAG["dag_items"]):
+            raise AssertionError(f"chaos rung {k}: {rep.summary()}")
+    for label, groups in (("spot mix", {"on-demand", "spot"}),
+                          ("all-spot", {"spot"})):
+        rep = runs[label][0]
+        if (rep.digest != mono.digest or rep.n_duplicate_commits
+                or not rep.n_preemptions
+                or rep.cost_by_group.keys() != groups):
+            raise AssertionError(f"{label}: {rep.summary()}")
+    layers = cfg.n_layers
+    want = dict(NO_LAUNCHES, flash_attention=layers * (
+        calls["prefill"] + calls["prefill_into"]),
+        decode_attention=layers * calls["decode"])
+    if counts != want:
+        raise AssertionError(f"DAG launches {counts}, want {want} from "
+                             f"engine calls {calls}")
+
+    # the reduce output against one batcher over the same prompts
+    reqs = [Request(rid=i, prompt=data.tokens[i],
+                    max_new_tokens=DAG["max_new_tokens"])
+            for i in range(data.n_items)]
+    serve_cluster.serve(engine, params, reqs, n_slots=DAG["n_slots"],
+                        max_len=rcfg.max_len)
+    streams = {r.rid: [int(t) for t in r.generated] for r in reqs}
+    if streams != mono.outputs:
+        differ = [i for i in streams if streams[i] != mono.outputs[i]]
+        raise AssertionError(f"reduce output != one batcher's greedy "
+                             f"streams for rows {differ}")
+
+    # round times on CUDA events: a prefill-stage row (B = 1) and a decode
+    # round of the replicas' four slots
+    prompt = data.tokens[0][None]
+    prefill_ms = cuda_ms(lambda: engine.prefill(params, prompt), iters=10)
+    cache = engine.new_cache(DAG["n_slots"], rcfg.max_len)
+    for row in range(DAG["n_slots"]):
+        engine.prefill_into(params, cache, row, data.tokens[row][None])
+    tok = torch.ones((DAG["n_slots"], 1), dtype=torch.int32, device=dev)
+
+    def decode_round():
+        cache.lengths.fill_(DAG["prompt_len"])
+        engine.decode(params, cache, tok)
+    decode_ms = cuda_ms(decode_round, iters=10)
+    prof = profile_round(decode_round)
+
+    cal = serve.calibrate(engine, params, prompt_len=DAG["prompt_len"],
+                          max_new_tokens=DAG["max_new_tokens"],
+                          slot_counts=DAG_CAL_SLOTS, n_steps=DAG_CAL_STEPS,
+                          repeats=DAG_CAL_REPEATS, path=None,
+                          source="chip_smoke.py phase (n)")
+    with _CallSpy(serve, ("run_dag",), keep=True) as cal_runs:
+        serve.run_dag(data, DAG["dag_items"], serve.dag_groups(
+            engine, params, rcfg, 1), calibration=cal)
+        serve.run_dag(data, DAG["dag_shard_size"], serve.dag_groups(
+            engine, params, rcfg, DAG["dag_workers"]), calibration=cal)
+    (_, cal_mono, cal_mono_s), (_, cal_par, cal_par_s) = cal_runs.log
+    if cal_mono.digest != mono.digest or cal_par.digest != mono.digest:
+        raise AssertionError("the calibrated runs changed the outputs")
+    print("(n) " + dag_line("calibrated mono", cal_mono, cal_mono_s))
+    print("(n) " + dag_line("calibrated par", cal_par, cal_par_s))
+    result = {
+        "engine_calls": calls, "launches": counts,
+        "prefill_ms": prefill_ms, "decode_round_ms": decode_ms,
+        "decode_round_busy_ms": prof["busy_ms"],
+        "decode_round_idle_share": 1 - prof["busy_ms"] / decode_ms,
+        "decode_round_launches": prof["launches"],
+        "host_s": {label: host_s for label, (_, host_s) in runs.items()},
+        "modeled": {"speedup": mono.wall_s / par.wall_s,
+                    "cost_ratio": par.cost_usd / mono.cost_usd},
+        "spot_preemptions": {label: runs[label][0].n_preemptions
+                             for label in ("spot mix", "all-spot")},
+        "calibration": cal.summary(),
+        "calibrated": {"mono_wall_s": cal_mono.wall_s,
+                       "par_wall_s": cal_par.wall_s,
+                       "speedup": cal_mono.wall_s / cal_par.wall_s,
+                       "cost_ratio": cal_par.cost_usd / cal_mono.cost_usd},
+        "digest": mono.digest,
+    }
+    print(f"(n) one digest over mono, parallel, {len(ladder)} chaos rungs, "
+          f"the spot mix and all-spot, equal to one batcher's streams; "
+          + json.dumps(result))
+    del engine, params, cache
+    return {"counts": counts}
+
+
+# ---------------------------------------------------------------------------
+# Phase (o): training the full-width distilbert-imdb, then serving it
+# ---------------------------------------------------------------------------
+
+# 768 reviews to train on and 256 held out, 128 tokens, the planted signal
+# of the reference's case study; AdamW, warmup then cosine to LR_FINAL
+TRAIN = dict(n_train=768, n_held=256, seq_len=128, batch=32, steps=60,
+             signal_frac=0.15)
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 6
+# labels of the flash and plain paths may differ only on items whose two
+# logits lie within this of each other on either path
+TRAIN_MARGIN = LOGIT_FLOOR
+# and their logits must agree to phase (f)'s relative RMS between a kernel
+# and a plain path
+TRAIN_LOGIT_RTOL = PATH_RTOL
+# one step with remat / microbatch against the plain one: the loss within
+# the rtol, and at most the share of master weights off by more than lr/2
+# (AdamW's first step moves every weight by about +-lr)
+REMAT_RTOL, REMAT_SHARE = 1e-6, 1e-3
+MICRO_RTOL, MICRO_SHARE = 1e-3, 0.02
+TRAIN_MICROBATCH = 8
+
+
+def distilbert_init(dev, tame: bool = True):
+    """(cfg, model, params) of the full-width distilbert-imdb from SEED; with
+    ``tame``, q/k at a fan-in std (:func:`tame_attention`)."""
+    cfg = configs.get("distilbert-imdb")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    if tame:
+        tame_attention(cfg, params)
+    return cfg, model, params
+
+
+def imdb_split(cfg):
+    """(train tokens, train labels, held tokens, held labels)."""
+    tokens, labels = imdb_reviews(
+        n=TRAIN["n_train"] + TRAIN["n_held"], seq_len=TRAIN["seq_len"],
+        vocab=cfg.vocab_size, seed=SEED, signal_frac=TRAIN["signal_frac"])
+    n = TRAIN["n_train"]
+    return tokens[:n], labels[:n], tokens[n:], labels[n:]
+
+
+def adamw():
+    return optimizer.AdamW(schedule=optimizer.warmup_cosine(
+        TRAIN_LR, TRAIN_WARMUP, TRAIN["steps"]), weight_decay=0.0)
+
+
+def train_classifier(model, params, tokens, labels, steps) -> tuple:
+    """``steps`` AdamW steps on batches of TRAIN["batch"]; returns the
+    params, the losses and each step's ms on CUDA events."""
+    opt = adamw()
+    state = opt.init(params)
+    step = train_step.make_train_step(model, RunConfig(), opt)
+    loader = TrainLoader(tokens, labels, batch=TRAIN["batch"], seed=SEED)
+    events, losses = [], []
+    for _ in range(steps):
+        batch = loader.next_batch()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, m = step(params, state, batch)
+        end.record()
+        events.append((start, end))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    return (params, [float(x) for x in losses],
+            [s.elapsed_time(e) for s, e in events])
+
+
+def share_off(a, b, tol) -> float:
+    off = tot = 0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d = (x.float() - y.float()).abs()
+        off += int((d > tol).sum())
+        tot += d.numel()
+    return off / tot
+
+
+def check_step_variants(model, params, batch) -> dict:
+    """One step each with remat "full", "dots" and microbatching against
+    the plain step, from the same params and batch."""
+    opt = adamw()
+
+    def one(run):
+        return train_step.make_train_step(model, run, opt)(
+            params, opt.init(params), batch)
+    _, plain, pm = one(RunConfig())
+    lr = float(pm["lr"])
+    out = {}
+    for name, run, rtol, share_max in (
+            ("remat_full", RunConfig(remat="full"), REMAT_RTOL, REMAT_SHARE),
+            ("remat_dots", RunConfig(remat="dots"), REMAT_RTOL, REMAT_SHARE),
+            (f"microbatch_{TRAIN_MICROBATCH}",
+             RunConfig(microbatch=TRAIN_MICROBATCH), MICRO_RTOL,
+             MICRO_SHARE)):
+        _, got, m = one(run)
+        share = share_off(got["master"], plain["master"], lr / 2)
+        bit_equal = all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(got["master"]), tree_leaves(plain["master"])))
+        rel = abs(float(m["loss"]) - float(pm["loss"])) / float(pm["loss"])
+        out[name] = {"loss_rel_diff": rel, "share_off": share,
+                     "bit_equal": bit_equal}
+        if rel > rtol or share > share_max:
+            raise AssertionError(f"{name} vs the plain step: {out[name]} "
+                                 f"(loss rtol {rtol}, share {share_max})")
+    return out
+
+
+def near_tie_labels(a, b, margin) -> tuple:
+    """(items whose logits lie within ``margin`` on either path, label
+    disagreements outside them)."""
+    near = (np.abs(a[:, 0] - a[:, 1]) < margin) | (
+        np.abs(b[:, 0] - b[:, 1]) < margin)
+    differ = a.argmax(-1) != b.argmax(-1)
+    return int(near.sum()), [int(i) for i in np.flatnonzero(differ & ~near)]
+
+
+def run_training_phase(dev) -> dict:
+    """Phase (o): train the full-width distilbert-imdb (q/k at a fan-in
+    std; the reference's init memorizes, which this phase also shows),
+    check remat and microbatching, classify the held-out set through the
+    flash kernel and the plain path, run phase (b)'s offline job and the
+    case-study example on the card. Returns the serving paths' launch
+    counts."""
+    cfg, model, init = distilbert_init(dev)
+    x, y, held_x, held_y = imdb_split(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    with train_launch.deterministic():
+        first = {"tokens": x[:TRAIN["batch"]], "labels": y[:TRAIN["batch"]]}
+        variants = check_step_variants(model, init, first)
+        params, losses, step_ms = train_classifier(model, init, x, y,
+                                                   TRAIN["steps"])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        before = fa_ops.launches
+        try:
+            train_step.make_train_step(model, RunConfig(attn_impl="pallas"),
+                                       adamw())(init, adamw().init(init),
+                                                first)
+            raise AssertionError("a training step under the flash kernel "
+                                 "did not raise")
+        except NotImplementedError:
+            pass
+        if fa_ops.launches != before:
+            raise AssertionError("the flash kernel ran under autograd")
+        # the same run from the reference's init, for the record
+        _, ref_model, ref_init = distilbert_init(dev, tame=False)
+        ref_params, ref_losses, _ = train_classifier(
+            ref_model, ref_init, x, y, TRAIN["steps"])
+    median_ms = float(np.median(step_ms))
+    tok_s = TRAIN["batch"] * TRAIN["seq_len"] / (median_ms / 1e3)
+
+    kernel = Engine(model, RunConfig(attn_impl="pallas"), device=dev)
+    plain = Engine(model, RunConfig(attn_impl="xla"), device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    k_logits = kernel.classify_logits(params, held_x)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    p_logits = plain.classify_logits(params, held_x)
+    ref_acc = float((plain.classify(ref_params, held_x) == held_y).mean())
+    acc = float((k_logits.argmax(-1) == held_y).mean())
+    near, hard = near_tie_labels(k_logits, p_logits, TRAIN_MARGIN)
+    logit_rms = rel_rms(torch.from_numpy(k_logits),
+                        torch.from_numpy(p_logits))
+    result = {
+        "lr": TRAIN_LR, "warmup": TRAIN_WARMUP, "steps": TRAIN["steps"],
+        "first_loss": losses[0], "last_loss": losses[-1],
+        "held_out_accuracy": acc, "step_ms_median": median_ms,
+        "step_ms_min": min(step_ms), "tokens_per_s": tok_s,
+        "peak_memory_gb": peak_gb, "variants": variants,
+        "near_margin_items": near, "label_flips_outside_margin": hard,
+        "logits_rel_rms": logit_rms,
+        "reference_init": {"first_loss": ref_losses[0],
+                           "last_loss": ref_losses[-1],
+                           "held_out_accuracy": ref_acc},
+    }
+    print(f"(o) training on {card_line()}: " + json.dumps(result))
+    if not losses[-1] < 0.9 * losses[0] or not acc > 0.6:
+        raise AssertionError(f"training: loss {losses[0]} -> {losses[-1]}, "
+                             f"held-out accuracy {acc}")
+    if hard:
+        raise AssertionError(f"flash vs plain labels differ outside the "
+                             f"margin on items {hard}")
+    if not logit_rms <= TRAIN_LOGIT_RTOL:
+        raise AssertionError(f"flash vs plain logits: relative RMS "
+                             f"{logit_rms} (tol {TRAIN_LOGIT_RTOL})")
+    if counts != dict(NO_LAUNCHES, flash_attention=cfg.n_layers):
+        raise AssertionError(f"classify launches {counts}")
+    paths = {"trained_classify_distilbert": counts}
+
+    # phase (b)'s offline job on the trained params
+    reset_counts()
+    job = run_offline(cfg, device=dev, run=RunConfig(attn_impl="pallas"),
+                      params=params, n_items=256, seq_len=TRAIN["seq_len"],
+                      batch_size=TRAIN["batch"], concurrency=8, seed=SEED)
+    torch.cuda.synchronize()
+    paths["offline_trained_distilbert"] = read_counts()
+    if not np.array_equal(job["predictions"], job["mono_predictions"]):
+        raise AssertionError("trained job: parallel != monolithic")
+    job_x, _ = imdb_reviews(n=256, seq_len=TRAIN["seq_len"],
+                            vocab=cfg.vocab_size, seed=SEED)
+    whole = kernel.classify_logits(params, job_x)
+    n_near = int((np.abs(whole[:, 0] - whole[:, 1]) < TRAIN_MARGIN).sum())
+    off = [int(i) for i in np.flatnonzero(
+        (job["predictions"] != whole.argmax(-1))
+        & (np.abs(whole[:, 0] - whole[:, 1]) >= TRAIN_MARGIN))]
+    if off:
+        raise AssertionError(f"merged predictions != one classify on {off}")
+    print(f"(o) offline job on the trained params: accuracy "
+          f"{job['accuracy']!r}, speedup "
+          f"{job['mono_report'].wall_time_s / job['par_report'].wall_time_s!r}"
+          f", merged predictions equal one classify of all 256 ({n_near} "
+          f"within the margin)")
+
+    # the case study as a user runs it (no --device: the card)
+    reset_counts()
+    case = sentiment_case_study.main([])
+    torch.cuda.synchronize()
+    paths["case_study_main"] = read_counts()
+    if not case["accuracy"] > 0.6 or not paths["case_study_main"][
+            "flash_attention"]:
+        raise AssertionError(f"case study: accuracy {case['accuracy']}, "
+                             f"launches {paths['case_study_main']}")
+    print(f"(o) sentiment_case_study.main: held-out accuracy "
+          f"{case['accuracy']!r}, losses {case['losses'][0]!r} -> "
+          f"{case['losses'][-1]!r}")
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# Phase (p): the training entry points, crash and resume, and the pod step
+# ---------------------------------------------------------------------------
+
+TRAIN_CLI_STEPS, TRAIN_CLI_CRASH = 40, 20
+TRAIN_CLI_TIMEOUT_S = 600
+POD_RANKS, POD_STEPS = 2, 3
+# the pod run's losses against the one-rank run's: the first step from the
+# same params, the later ones after int8-compressed updates
+POD_FIRST_RTOL, POD_LOSS_RTOL = 1e-3, 0.05
+
+
+def final_checkpoint(ckpt_dir: Path) -> dict:
+    step = train_checkpoint.latest_step(str(ckpt_dir))
+    path = ckpt_dir / f"step_{step:010d}"
+    with np.load(path / "arrays.npz") as data:
+        arrays = {k: data[k] for k in data.files}
+    return {"step": step, "arrays": arrays}
+
+
+def start_train_cli() -> dict:
+    """Start ``python -m repro_torch.launch.train`` and ``python -m
+    repro_torch.examples.train_100m`` as a user runs them (no --device),
+    each with a crash at TRAIN_CLI_CRASH and straight through: four
+    processes at once. :func:`finish_train_cli` waits for them."""
+    root = ROOT / "build" / "train_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    commands = {
+        "launch.train": ["-m", "repro_torch.launch.train", "--smoke",
+                         "--steps", str(TRAIN_CLI_STEPS), "--ckpt-every",
+                         "10", "--log-every", "10"],
+        "train_100m": ["-m", "repro_torch.examples.train_100m", "--steps",
+                       str(TRAIN_CLI_STEPS)],
+    }
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for name, argv in commands.items():
+        for crash in (TRAIN_CLI_CRASH, -1):
+            cmd = [sys.executable, *argv, "--ckpt-dir",
+                   str(root / f"{name}_{crash}"), "--crash-at-step",
+                   str(crash)]
+            procs[name, crash] = subprocess.Popen(
+                cmd, cwd=str(ROOT), env=env, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    return {"root": root, "commands": commands, "procs": procs,
+            "t0": time.perf_counter()}
+
+
+def finish_train_cli(run: dict) -> dict:
+    """Wait for :func:`start_train_cli`'s processes (killing them at
+    TRAIN_CLI_TIMEOUT_S); the resumed run's final checkpoint and loss
+    must equal the uninterrupted run's bit for bit."""
+    root, commands, procs, t0 = (run["root"], run["commands"],
+                                 run["procs"], run["t0"])
+    outs = {}
+    try:
+        for key, p in procs.items():
+            left = max(TRAIN_CLI_TIMEOUT_S - (time.perf_counter() - t0), 1)
+            outs[key] = p.communicate(timeout=left)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    result = {"wall_s": wall}
+    for (name, crash), p in procs.items():
+        if p.returncode:
+            err = outs[name, crash][1][-3000:]
+            raise AssertionError(f"{name} crash={crash} exited "
+                                 f"{p.returncode}:\n{err}")
+    for name in commands:
+        crashed, straight = (outs[name, TRAIN_CLI_CRASH][0],
+                             outs[name, -1][0])
+        if ("CRASH" not in crashed or f"resumed from step {TRAIN_CLI_CRASH}"
+                not in crashed or "CRASH" in straight):
+            raise AssertionError(f"{name}: no crash and resume:\n{crashed}")
+        done = [ln for out in (crashed, straight)
+                for ln in out.splitlines() if ln.startswith("[train] done")]
+        a = final_checkpoint(root / f"{name}_{TRAIN_CLI_CRASH}")
+        b = final_checkpoint(root / f"{name}_-1")
+        same = a["step"] == b["step"] == TRAIN_CLI_STEPS and \
+            a["arrays"].keys() == b["arrays"].keys() and all(
+                np.array_equal(a["arrays"][k], b["arrays"][k])
+                for k in a["arrays"])
+        final_loss = [ln.rsplit("-> ", 1)[1] for ln in done]
+        if not same or len(set(final_loss)) != 1:
+            raise AssertionError(f"{name}: resumed run differs from the "
+                                 f"uninterrupted one ({done})")
+        result[name] = {"final_loss": float(final_loss[0]),
+                        "leaves": len(a["arrays"]), "bit_equal": True}
+        print(f"(p) {name}: crash at step {TRAIN_CLI_CRASH}, resumed, "
+              f"{TRAIN_CLI_STEPS} steps: final checkpoint ({len(a['arrays'])}"
+              f" leaves) and loss {final_loss[0]} equal the uninterrupted "
+              f"run's bit for bit")
+    return result
+
+
+def pod_worker(spec_path: str):
+    """One rank of phase (p)'s pod run, started by ``spawn_ranks``: the
+    full-width distilbert-imdb on a ("pod",) mesh of the ranks (gloo on
+    the shared card), POD_STEPS steps with int8-compressed grads. Writes
+    its losses and a digest of its master weights beside the spec."""
+    spec = json.loads(Path(spec_path).read_text())
+    dev = init_from_env("cuda")
+    rank, world = rank_env()
+    mesh = make_host_mesh((world,), ("pod",))
+    cfg, model, params = distilbert_init(dev)
+    x, y, _, _ = imdb_split(cfg)
+    losses, digest = pod_steps(model, params, x, y, mesh)
+    Path(spec["out"], f"rank{rank}.json").write_text(json.dumps(
+        {"losses": losses, "digest": digest}))
+
+
+def pod_steps(model, params, x, y, mesh=None) -> tuple:
+    """POD_STEPS AdamW steps (int8-compressed grads over "pod" when
+    ``mesh`` has that axis); returns the losses and a sha256 of the
+    master weights."""
+    opt = adamw()
+    state = opt.init(params)
+    step = train_step.make_train_step(
+        model, RunConfig(grad_compression="int8"), opt, mesh=mesh)
+    loader = TrainLoader(x, y, batch=TRAIN["batch"], seed=SEED)
+    losses = []
+    with train_launch.deterministic():
+        for _ in range(POD_STEPS):
+            params, state, m = step(params, state, loader.next_batch())
+            losses.append(float(m["loss"]))
+    h = hashlib.sha256()
+    for t in tree_leaves(state["master"]):
+        h.update(t.cpu().numpy().tobytes())
+    return losses, h.hexdigest()
+
+
+def run_pod(dev) -> dict:
+    """The pod step on POD_RANKS ranks sharing the card: both ranks'
+    master weights bit-identical, the losses within the stated tolerance
+    of the one-rank run's."""
+    with tempfile.TemporaryDirectory() as tmp:
+        spec_path = Path(tmp, "spec.json")
+        spec_path.write_text(json.dumps({"out": tmp}))
+        t0 = time.perf_counter()
+        done = spawn_ranks([str(ROOT / "chip_smoke.py"), "--pod-worker",
+                            str(spec_path)], POD_RANKS,
+                           store_path=str(Path(tmp, "store")),
+                           timeout=RANK_TIMEOUT_S, cwd=str(ROOT))
+        wall = time.perf_counter() - t0
+        for r, p in enumerate(done):
+            if p.returncode:
+                raise AssertionError(f"pod rank {r} exited {p.returncode}:"
+                                     f"\n{p.stderr[-4000:]}")
+        res = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+               for r in range(POD_RANKS)]
+    cfg, model, params = distilbert_init(dev)
+    x, y, _, _ = imdb_split(cfg)
+    one, _ = pod_steps(model, params, x, y)
+    backends = sorted({ln for p in done for ln in p.stdout.splitlines()
+                       if "process group backend" in ln})
+    if any(r["digest"] != res[0]["digest"] or r["losses"] != res[0]["losses"]
+           for r in res):
+        raise AssertionError(f"pod ranks differ: {res}")
+    rel = [abs(a - b) / b for a, b in zip(res[0]["losses"], one)]
+    if rel[0] > POD_FIRST_RTOL or max(rel) > POD_LOSS_RTOL:
+        raise AssertionError(f"pod losses {res[0]['losses']} vs one rank "
+                             f"{one}")
+    result = {"ranks": POD_RANKS, "steps": POD_STEPS,
+              "losses": res[0]["losses"], "one_rank_losses": one,
+              "loss_rel_diff": rel, "wall_s": wall, "backends": backends}
+    print(f"(p) pod, int8, {POD_RANKS} ranks on {card_line()}: master "
+          f"weights bit-identical on every rank; " + json.dumps(result))
+    return result
+
+
+def run_training_entry_points(dev) -> dict:
+    """Phase (p): the CLI runs, with the pod run beside them."""
+    cli = start_train_cli()
+    try:
+        pod = run_pod(dev)
+    except BaseException:
+        for p in cli["procs"].values():
+            p.kill()
+            p.wait()
+        raise
+    return {"cli": finish_train_cli(cli), "pod": pod}
+
+
 def control_plane_phases(phase) -> dict:
     """Phases (i)-(m); returns their paths' launch counts."""
     paths = {"fig2_distilbert": phase(
@@ -3196,6 +3835,9 @@ def control_plane_phases(phase) -> dict:
 def main():
     if sys.argv[1:2] == ["--rank-worker"]:  # one rank of phase (h)
         rank_worker(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--pod-worker"]:  # one rank of phase (p)
+        pod_worker(sys.argv[2])
         return
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device here; this script runs the port "
@@ -3250,6 +3892,15 @@ def main():
                        lambda d: run_ranks(d, seq_info)))
     torch.cuda.empty_cache()
     paths.update(control_plane_phases(phase))
+    torch.cuda.empty_cache()
+    paths["batch_dag_qwen2_7b"] = phase("(n) batch DAG, qwen2-7b",
+                                        run_batch_dag_phase)["counts"]
+    torch.cuda.empty_cache()
+    paths.update(phase("(o) training distilbert-imdb, then serving it",
+                       run_training_phase))
+    torch.cuda.empty_cache()
+    phase("(p) training entry points, crash/resume, pod step",
+          run_training_entry_points)
     # the path each kernel must have been launched on
     main_path = {"flash_attention": "generate_qwen2_7b",
                  "decode_attention": "generate_qwen2_7b",

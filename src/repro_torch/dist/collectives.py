@@ -1,8 +1,8 @@
-"""Sequence-sharded decode attention over a "model"-axis process group.
+"""Sequence-sharded decode attention, and the compressed gradient sum.
 
-Counterpart of ``repro.dist.collectives`` (``seq_sharded_decode`` and
-``seq_sharded_write_decode``; ``compress_psum`` belongs to training and
-waits for that slice, ROADMAP Queue 1 #9). Each rank holds one block of
+Counterpart of ``repro.dist.collectives``: ``seq_sharded_decode`` and
+``seq_sharded_write_decode`` for serving, ``compress_psum`` for training
+(the "pod" reduction of ``training.train_step``). Each rank holds one block of
 the KV cache's SEQUENCE dim, (B, S/M, KV, hd) for M ranks on "model",
 computes a flash-style partial softmax over it (the
 ``kernels/decode_attention`` partials kernel on CUDA tensors: running max
@@ -123,7 +123,8 @@ def _shard_plan(mesh, seq_shards: int):
     if any(ctx.axis_size(a, mesh) > 1 for a in ctx.dp_axes(mesh)):
         raise NotImplementedError(
             "a data axis larger than 1 (batch-sharded rows across ranks) "
-            "is not ported yet (ROADMAP.md Queue 1 #8)")
+            "is not ported yet (ROADMAP.md Queue 1 #4.1, a data axis "
+            "larger than 1)")
     group = mesh.group("model")
     if group is None:
         raise ValueError(f"{mesh} has no process group on 'model'")
@@ -195,3 +196,50 @@ def seq_sharded_write_decode(q, k_new, v_new, k_cache, v_cache, lengths, *,
                                   cap)
     num, den = _merge(num, den, m, group)
     return _combine_local(q, num, den), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# Compressed gradient reduction
+# ---------------------------------------------------------------------------
+
+
+def _axis_group(mesh, axis: str):
+    """The process group along ``axis``, or None when it has one rank
+    (no mesh, no such axis, or size 1): the sum is then the identity."""
+    if ctx.axis_size(axis, mesh) <= 1:
+        return None
+    group = mesh.group(axis)
+    if group is None:
+        raise ValueError(f"{mesh} has no process group on {axis!r}")
+    return group
+
+
+def compress_psum(x, axis_name: str, method: str, mesh=None):
+    """Sum of ``x`` over the ranks of ``axis_name`` with the payload
+    compressed to ``method``, on ``mesh`` (default the ambient one).
+
+    Emulates the wire format of a compressed cross-pod gradient
+    all-reduce, as the reference's: "none" sums ``x`` as is; "bf16" casts
+    the payload to bf16 and sums that; "int8" quantizes against the
+    amax over every rank (one extra MAX all-reduce of a scalar), rounds
+    half to even and clips to +-127, sums in int32 so the accumulator
+    cannot saturate, and scales back. "bf16" and "int8" return fp32; any
+    other method raises ``ValueError`` before any collective.
+    """
+    if method not in (None, "none", "bf16", "int8"):
+        raise ValueError(f"unknown grad compression method {method!r}")
+    group = _axis_group(mesh if mesh is not None else ctx.get_mesh(),
+                        axis_name)
+
+    def total(t, op=torch.distributed.ReduceOp.SUM):
+        return t if group is None else _all_reduce(t, op, group)
+
+    if method in (None, "none"):
+        return total(x.clone())
+    if method == "bf16":
+        return total(x.to(torch.bfloat16, copy=True)).to(torch.float32)
+    xf = x.to(torch.float32)
+    amax = total(torch.max(torch.abs(xf)), torch.distributed.ReduceOp.MAX)
+    scale = torch.clamp(amax, min=1e-30) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return total(q.to(torch.int32)).to(torch.float32) * scale

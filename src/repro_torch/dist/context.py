@@ -13,7 +13,8 @@ degrades to a default (size 1, no axes), so the same model code runs
 unmodified on one rank. The reference's ``set_batch_axes`` and sharding
 constraints (``constrain``/``constrain_dims``) serve GSPMD layouts of a
 data axis and tensor-parallel params, which the port does not have yet
-(ROADMAP Queue 1 #8).
+(ROADMAP Queue 1 #4.1, a data axis larger than 1, and #4.2,
+tensor-parallel params).
 """
 from __future__ import annotations
 

@@ -11,7 +11,8 @@ allocates and prefills each rank's block by it, and
 The rest of the reference's planner (param layouts, strategies, input
 specs, mesh slices) lays out tensor-parallel params and a data axis, which
 the port does not have yet: every rank holds the params whole and the
-data axis is 1 (ROADMAP Queue 1 #8).
+data axis is 1 (ROADMAP Queue 1 #4.1, a data axis larger than 1, and
+#4.2, tensor-parallel params).
 """
 from __future__ import annotations
 

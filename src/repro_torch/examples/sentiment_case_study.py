@@ -1,16 +1,17 @@
 """The paper's case study, end to end (serving example):
 
-  1. TRAIN the DistilBERT-family classifier on synthetic IMDb — not yet
-     in the port (training is ROADMAP Queue 1 #3), so this example serves
-     the initialised params and says so;
-  2. serve the held-out set monolithically vs in parallel with REAL
-     inference through the orchestrator, and check that the merged
-     predictions equal one ``Engine.classify`` over the whole set;
+  1. TRAIN the DistilBERT-family classifier on synthetic IMDb until it
+     separates the classes (AdamW, plain torch attention under autograd);
+  2. serve the held-out set with the TRAINED params monolithically vs in
+     parallel with REAL inference through the orchestrator, and check that
+     the merged predictions equal one ``Engine.classify`` over the whole
+     set;
   3. reproduce the paper-scale Fig. 2 sweep with the calibrated simulator.
 
-Counterpart of the repository's ``examples/sentiment_case_study.py``
-(parts 2 and 3), through the hand-written attention kernel on the GPU
-(its plain version on the CPU).
+Counterpart of the repository's ``examples/sentiment_case_study.py``.
+Serving runs the hand-written attention kernel on the GPU (its plain
+version on the CPU); training runs the plain attention, as the
+reference's does (the kernel has no backward pass).
 
     python -m repro_torch.examples.sentiment_case_study               # GPU
     python -m repro_torch.examples.sentiment_case_study --device cpu
@@ -26,12 +27,16 @@ from repro_torch.core import (ArtifactStore, BatchJob, LatencyModel,
                               ServerlessFunction, decompose, merge)
 from repro_torch.core.simulator import (CaseStudyConfig, run_monolithic,
                                         run_parallel)
-from repro_torch.data import imdb_reviews
+from repro_torch.data import TrainLoader, imdb_reviews
 from repro_torch.data.pipeline import DatasetRef
 from repro_torch.models import RunConfig, build
 from repro_torch.serving import Engine
+from repro_torch.training.optimizer import AdamW, constant
+from repro_torch.training.train_step import make_train_step
 
-RUN = RunConfig(attn_impl="pallas")
+RUN = RunConfig(attn_impl="pallas")   # serving: the hand kernels
+TRAIN_RUN = RunConfig()               # training: plain attention
+TRAIN_STEPS = 150
 SWEEP_BATCH_SIZES = (50, 100, 250, 500, 1000)
 
 
@@ -41,9 +46,8 @@ def main(argv=None) -> dict:
                     help='where the model runs ("cuda" or "cpu")')
     args = ap.parse_args(argv)
 
-    # --- 1. the classifier: initialised params (training not ported) ----
-    print("== sentiment classifier: initialised params (the port has no "
-          "training yet; accuracy is chance) ==")
+    # --- 1. train the classifier on the planted-signal IMDb -------------
+    print("== training sentiment classifier ==")
     cfg = configs.smoke("distilbert-imdb")
     model = build(cfg)
     tokens, labels = imdb_reviews(n=512, seq_len=48, vocab=cfg.vocab_size,
@@ -51,6 +55,17 @@ def main(argv=None) -> dict:
     engine = Engine(model, RUN, device=args.device)
     params = engine.place_params(
         model.init(torch.Generator().manual_seed(0), engine.device))
+    opt = AdamW(schedule=constant(3e-3), weight_decay=0.0)
+    opt_state = opt.init(params)
+    step = make_train_step(model, TRAIN_RUN, opt)
+    loader = TrainLoader(tokens[:384], labels[:384], batch=32)
+    losses = []
+    for i in range(TRAIN_STEPS):
+        params, opt_state, m = step(params, opt_state, loader.next_batch())
+        losses.append(float(m["loss"]))
+        if (i + 1) % 30 == 0:
+            print(f"  step {i+1}: loss={losses[-1]:.4f} "
+                  f"acc={float(m['accuracy']):.3f}")
     test_tokens, test_labels = tokens[384:], labels[384:]
     whole = engine.classify(params, test_tokens)
     acc = float((whole == test_labels).mean())
@@ -80,7 +95,8 @@ def main(argv=None) -> dict:
     print(f"  monolithic {mono.wall_time_s:5.1f}s ${mono.cost_usd:.6f} | "
           f"parallel {par.wall_time_s:5.1f}s ${par.cost_usd:.6f} | "
           f"speedup {mono.wall_time_s/par.wall_time_s:.1f}x, semantics exact")
-    out = {"accuracy": acc, "mono": mono.summary(), "par": par.summary(),
+    out = {"accuracy": acc, "losses": losses, "params": params,
+           "mono": mono.summary(), "par": par.summary(),
            "predictions": preds}
 
     # --- 3. paper-scale calibrated sweep (Fig 2) -------------------------

@@ -6,7 +6,8 @@ at every size, after checking device, dtype, shape, contiguity and (bf16)
 16-byte alignment. bf16 runs the tensor-core body, which takes any S and
 T; fp32 runs the CUDA-core body, for which S and T are padded to its
 block multiples. For CPU tensors, and only for them, it runs the plain
-version (``ref.py``).
+version (``ref.py``). It has no backward pass, as the reference's kernel
+has none: called under autograd on inputs that require grad, it raises.
 """
 from __future__ import annotations
 
@@ -86,6 +87,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        # on either device: a plain-version gradient on the CPU would be a
+        # path the card cannot take
+        raise NotImplementedError(
+            "flash_attention has no backward pass (nor has the reference's "
+            "Pallas kernel): train with RunConfig(attn_impl='xla')")
     if all(x.device.type == "cpu" for x in (q, k, v)):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)

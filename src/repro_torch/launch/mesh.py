@@ -2,9 +2,10 @@
 
 Counterpart of ``repro.launch.mesh`` (``make_host_mesh``, ``n_chips``;
 ``make_production_mesh``, the 16x16 pod layout, waits with the multi-host
-work, ROADMAP Queue 1 #8). JAX sees every local device from one process;
-PyTorch runs one process per rank, so a mesh spans the ranks of the
-initialised default process group (or one rank with no group).
+work, ROADMAP Queue 1 #4.4, make_production_mesh). JAX sees every local
+device from one process; PyTorch runs one process per rank, so a mesh
+spans the ranks of the initialised default process group (or one rank with
+no group).
 
 Backends follow the layout: NCCL when every rank has a GPU of its own,
 gloo when ranks share a card or run on the CPU (NCCL refuses two ranks on

@@ -29,14 +29,21 @@ cache decodes them, TTFT/TPOT measured at real first-token/per-token
 events. ``--trace PATH`` records per-request spans for
 ``python -m repro_torch.tools.trace_report PATH``.
 
-Not in the port yet: ``--batch-dag`` (the batch DAG is the next slice),
-``--mesh-slices`` (ROADMAP Queue 1 #4.3), and meshes one process cannot
-form: ``--mesh 1x1 --seq-shard`` runs here, more ranks run through
-``python -m repro_torch.examples.serve_cluster --ranks M``.
+BATCH-DAG mode (``--batch-dag``) runs the offline job as an explicit
+shard→prefill→decode→reduce DAG (``repro_torch.batch``) on cloud-profiled
+replica pools — heterogeneous spot/on-demand placement, preemptions
+survived with bit-identical outputs, optional ``--chaos`` ladder.
+
+Not in the port yet: ``--mesh-slices`` (ROADMAP Queue 1 #4.3, replicas on
+mesh slices), and meshes one process cannot form: ``--mesh 1x1
+--seq-shard`` runs here, more ranks run through ``python -m
+repro_torch.examples.serve_cluster --ranks M``.
 
 Usage:
   python -m repro_torch.launch.serve --n-items 256 --batch-size 32 \
       --concurrency 8 --crash-prob 0.1
+  python -m repro_torch.launch.serve --batch-dag --dag-workers 6 \
+      --spot-workers 4 --preempt-rate 0.25 --chaos
   python -m repro_torch.launch.serve --router --traffic bursty --rate 24
   python -m repro_torch.launch.serve --calibrate      # fit + save
   python -m repro_torch.launch.serve --router --calibration calibration.json
@@ -55,6 +62,9 @@ from typing import Awaitable, Callable, Dict, Optional, Sequence
 import torch
 
 from repro_torch import configs
+from repro_torch.batch import (BatchDagRunner, BatchDataset, DagReport,
+                               PlacementPolicy, chaos_ladder, inference_dag,
+                               make_dataset, make_group)
 from repro_torch.core import (ArtifactStore, BatchJob, FaultInjector,
                               LatencyModel, MonolithicConfig,
                               MonolithicRunner, Orchestrator,
@@ -73,6 +83,8 @@ from repro_torch.router import (TRAFFIC, CalibratedLatencyModel,
                                 WallClock, default_policies,
                                 fit_round_model, make_requests,
                                 measure_round_samples)
+from repro_torch.router.cloud import ON_DEMAND, spot_profile
+from repro_torch.router.events import VirtualClock
 from repro_torch.serving import Engine
 
 
@@ -172,13 +184,14 @@ def run_offline(cfg: ModelConfig, *, n_items: int = 256, seq_len: int = 64,
 
 def lm_engine(cfg: ModelConfig, *, seed: int = 0, device="cuda",
               kv_dtype: str = "bf16", mesh=None, seq_shard: bool = False,
-              params=None):
-    """(engine, placed params) for the online modes: the hand kernels
+              params=None, cache_pad: int = 16):
+    """(engine, placed params) for the generative modes: the hand kernels
     (``attn_impl="pallas"``; the engine makes it "seq_shard" under a mesh
-    with ``seq_shard``), ``cache_pad=16`` as the reference. ``params``
-    defaults to a random init from ``seed`` on the engine's device."""
+    with ``seq_shard``), ``cache_pad`` 16 as the reference's online modes
+    (its batch DAG takes 8). ``params`` defaults to a random init from
+    ``seed`` on the engine's device."""
     model = build(cfg)
-    engine = Engine(model, RunConfig(attn_impl="pallas", cache_pad=16,
+    engine = Engine(model, RunConfig(attn_impl="pallas", cache_pad=cache_pad,
                                      kv_dtype=kv_dtype),
                     device=device, mesh=mesh, seq_shard=seq_shard)
     if params is None:
@@ -406,6 +419,124 @@ def run_http(cfg: ModelConfig, *, engine: Optional[Engine] = None,
             "router": router, "clients": served}
 
 
+# ---------------------------------------------------------------------------
+# Batch-DAG mode: the offline job as a shard→prefill→decode→reduce DAG
+# ---------------------------------------------------------------------------
+
+
+def dag_groups(engine: Engine, params, rcfg: ReplicaConfig, n_workers: int,
+               *, spot_workers: int = 0, preempt_rate: float = 0.25,
+               seed: int = 0, kills: Optional[dict] = None) -> list:
+    """The worker pools of one DAG run: ``n_workers - spot_workers``
+    on-demand replicas (group 0 when there are any), then ``spot_workers``
+    from a spot market preempting at ``preempt_rate`` per worker-second
+    (seed ``seed + 3``, as the reference). ``kills`` maps a group's index
+    to the chaos harness's explicit kills."""
+    kills = kills or {}
+    n_od = max(n_workers - spot_workers, 0)
+    out = []
+    if n_od:
+        out.append(make_group(engine, params, ON_DEMAND, n_od, cfg=rcfg,
+                              extra_kills=kills.get(0, ())))
+    if n_workers - n_od:
+        sp = spot_profile(preempt_rate_per_s=preempt_rate, seed=seed + 3)
+        out.append(make_group(engine, params, sp, n_workers - n_od,
+                              cfg=rcfg, extra_kills=kills.get(len(out), ())))
+    return out
+
+
+def run_dag(data: BatchDataset, shard_size: int, groups: list, *,
+            per_token_s: float = 0.02,
+            calibration: Optional[CalibratedLatencyModel] = None
+            ) -> DagReport:
+    """One DAG run of ``data`` in shards of ``shard_size`` rows on
+    ``groups``, on a fresh ``VirtualClock`` and store. Rounds take the
+    reference's modeled time (``per_token_s`` a token, 0.02 s a host task)
+    or, with ``calibration``, the fitted round-time model."""
+    if calibration is None:
+        times = dict(per_item_s=per_token_s)
+    else:
+        times = dict(per_item_s=calibration.per_item_s,
+                     prefill_token_factor=calibration.prefill_token_factor,
+                     round_overhead_s=calibration.round_overhead_s)
+    dag = inference_dag(data.n_items, shard_size)
+    return BatchDagRunner(dag, data, groups, clock=VirtualClock(),
+                          store=ArtifactStore(),
+                          placement=PlacementPolicy(),
+                          task_overhead_s=0.02, **times).run()
+
+
+def run_batch_dag(cfg: ModelConfig, *, engine: Optional[Engine] = None,
+                  params=None, seed: int = 0, device="cuda",
+                  dag_items: int = 48, dag_shard_size: int = 8,
+                  dag_workers: int = 6, spot_workers: int = 0,
+                  preempt_rate: float = 0.25, prompt_len: int = 16,
+                  max_new_tokens: int = 8, n_slots: int = 4,
+                  per_token_s: float = 0.02, chaos: bool = False) -> dict:
+    """Batch-DAG mode: the offline job as an explicit
+    shard→prefill→decode→reduce DAG on cloud-profiled replica pools —
+    monolithic (one on-demand worker) vs parallel (``dag_workers``, of
+    them ``spot_workers`` spot), spot preemptions survived with
+    bit-identical outputs, and with ``chaos`` the chaos ladder on the
+    parallel run's pools.
+
+    ``engine``/``params`` default to :func:`lm_engine` over ``cfg`` with
+    ``cache_pad=8``, as the reference. Returns the two summaries under
+    "mono"/"par", "outputs_identical", and with ``chaos`` the ladder's
+    kills and parity, as the reference."""
+    if engine is None:
+        engine, params = lm_engine(cfg, seed=seed, device=device,
+                                   cache_pad=8)
+    data = make_dataset(dag_items, prompt_len=prompt_len,
+                        vocab=cfg.vocab_size,
+                        max_new_tokens=max_new_tokens, seed=seed)
+    rcfg = ReplicaConfig(n_slots=n_slots,
+                         max_len=prompt_len + max_new_tokens)
+
+    def groups(n_workers, kills=None, spot=spot_workers):
+        return dag_groups(engine, params, rcfg, n_workers,
+                          spot_workers=spot, preempt_rate=preempt_rate,
+                          seed=seed, kills=kills)
+
+    def run(shard_size, gs):
+        return run_dag(data, shard_size, gs, per_token_s=per_token_s)
+
+    print(f"== batch DAG: {dag_items} items, shard={dag_shard_size}, "
+          f"{dag_workers} workers ({spot_workers} spot at "
+          f"{preempt_rate}/s) ==")
+    # the baseline is always one ON-DEMAND worker: the paper's "rent one
+    # big box" reference point is never preemptible
+    mono = run(dag_items, groups(1, spot=0))
+    print(f"monolithic: wall={mono.wall_s:.2f}s busy={mono.busy_s:.2f}s "
+          f"cost=${mono.cost_usd:.6f} tasks={mono.n_tasks}")
+    par = run(dag_shard_size, groups(dag_workers))
+    print(f"parallel:   wall={par.wall_s:.2f}s busy={par.busy_s:.2f}s "
+          f"cost=${par.cost_usd:.6f} tasks={par.n_tasks} "
+          f"preemptions={par.n_preemptions} spawns={par.n_spawns}")
+    match = par.digest == mono.digest
+    print(f"speedup: {mono.wall_s / par.wall_s:.2f}x | cost ratio "
+          f"{par.cost_usd / max(mono.cost_usd, 1e-12):.3f} | outputs "
+          f"{'identical' if match else 'DIVERGED'} | "
+          f"compiles {mono.compile_count}->{par.compile_count}")
+    out = {"mono": mono.summary(), "par": par.summary(),
+           "outputs_identical": match}
+    if chaos:
+        reports, kills = chaos_ladder(
+            lambda k: run(dag_shard_size, groups(dag_workers, k)))
+        # output parity only: with live spot pools the Poisson process
+        # adds its own preemptions, so the exact fired-kill count
+        # (n_preemptions == k) holds on on-demand pools only
+        parity = all(r.digest == reports[0].digest for r in reports)
+        print(f"chaos ladder: {len(kills)} stage-boundary kills, "
+              f"preemptions per rung "
+              f"{[r.n_preemptions for r in reports]}, "
+              f"parity={'OK' if parity else 'VIOLATED'} "
+              f"(dup commits: "
+              f"{max(r.n_duplicate_commits for r in reports)})")
+        out["chaos"] = {"kills": len(kills), "parity": parity}
+    return out
+
+
 def parse_mesh(spec: Optional[str], seq_shard: bool):
     """``--mesh DxM`` as a mesh this one process can form: ``1x1``. Other
     shapes need one process a rank."""
@@ -494,9 +625,29 @@ def main(argv=None):
                          "yet: ROADMAP Queue 1 #4.3)")
     ap.add_argument("--budget-usd", type=float, default=1.0,
                     help="cost-cap policy budget")
+    # -- batch-DAG mode (repro_torch.batch) ------------------------------
     ap.add_argument("--batch-dag", action="store_true",
-                    help="offline batch job as a shard/prefill/decode/"
-                         "reduce DAG (not in the port yet)")
+                    help="offline batch job as an explicit shard/prefill/"
+                         "decode/reduce DAG on cloud-profiled pools "
+                         "(repro_torch.batch): monolithic vs parallel, spot "
+                         "preemptions survived with identical outputs")
+    ap.add_argument("--dag-items", type=int, default=48,
+                    help="batch-DAG dataset rows")
+    ap.add_argument("--dag-shard-size", type=int, default=8,
+                    help="rows per DAG shard (one prefill+decode chain "
+                         "per shard)")
+    ap.add_argument("--dag-workers", type=int, default=6,
+                    help="total replicas for the parallel DAG run")
+    ap.add_argument("--spot-workers", type=int, default=0,
+                    help="of --dag-workers, how many come from a spot "
+                         "pool (cheaper, preemptible)")
+    ap.add_argument("--preempt-rate", type=float, default=0.25,
+                    help="spot-pool preemption rate (kills per "
+                         "worker-second of the Poisson process)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="after the comparison, run the chaos ladder "
+                         "(one deterministic kill per DAG stage "
+                         "boundary; asserts output parity)")
     # -- HTTP front door (repro_torch.router.frontdoor) ------------------
     ap.add_argument("--http", action="store_true",
                     help="live serving mode: asyncio HTTP front door "
@@ -515,13 +666,19 @@ def main(argv=None):
                          "with python -m repro_torch.tools.trace_report")
     args = ap.parse_args(argv)
 
-    if args.batch_dag:
-        raise SystemExit("--batch-dag: the batch DAG (repro.batch) is not "
-                         "ported yet; it is the port's next slice")
     if args.mesh_slices:
         raise SystemExit("--mesh-slices needs Engine.for_mesh and "
                          "slice_meshes, not ported yet (ROADMAP Queue 1 "
                          "#4.3)")
+    if args.batch_dag:
+        return run_batch_dag(
+            configs.smoke(args.router_arch), seed=args.seed,
+            device=args.device, dag_items=args.dag_items,
+            dag_shard_size=args.dag_shard_size,
+            dag_workers=args.dag_workers, spot_workers=args.spot_workers,
+            preempt_rate=args.preempt_rate, prompt_len=args.prompt_len,
+            max_new_tokens=args.max_new_tokens, n_slots=args.n_slots,
+            per_token_s=args.per_token_s, chaos=args.chaos)
     online = args.http or args.router or args.calibrate
     if args.mesh and not online:
         raise SystemExit("--mesh applies to --router, --calibrate and "

@@ -114,7 +114,7 @@ def build(cfg: ModelConfig) -> Model:
     if cfg.encdec:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet "
-            f"(ROADMAP.md Queue 1 #7)")
+            f"(ROADMAP.md Queue 1 #5, remaining model families)")
     specs = transformer.lm_specs(cfg)
     return Model(cfg=cfg, param_specs=specs,
                  active_param_count=_active_params(cfg, specs))

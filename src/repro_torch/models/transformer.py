@@ -25,9 +25,17 @@ a dense cache holds one rank's block of every layer's sequence dim,
 global (``Cache.seq_shards`` = M); prefill computes the whole prompt on
 every rank and keeps the rank's slice of its K/V.
 
+``forward`` honours ``RunConfig.remat`` under autograd, as the
+reference's ``_maybe_remat``: "full" recomputes each layer in the backward
+pass (``torch.utils.checkpoint``), "dots" keeps only the outputs of the
+layer's matmuls without batch dims (the reference's
+``dots_with_no_batch_dims_saveable``: ``mm``/``addmm`` kept, attention's
+batched ``bmm`` recomputed).
+
 Ported so far: attention mixers ("attn", "attn_local") with dense MLPs,
 and bf16 or int8 KV in dense or paged caches. SSM mixers, MoE MLPs and
-sandwich norms raise ``NotImplementedError`` (Queue 1 #7).
+sandwich norms raise ``NotImplementedError`` (ROADMAP Queue 1 #5,
+remaining model families).
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels.decode_attention.quant import (KV_DTYPES,
                                                         quantize_kv)
@@ -46,7 +55,7 @@ from repro_torch.models.common import (AxSpec, LayerSpec, ModelConfig,
                                        RunConfig, apply_norm, norm_spec,
                                        softcap)
 
-_QUEUE = "ROADMAP.md Queue 1 #7 (remaining model families)"
+_QUEUE = "ROADMAP.md Queue 1 #5, remaining model families"
 
 
 def _check_ported(cfg: ModelConfig, spec: LayerSpec):
@@ -123,6 +132,30 @@ def _apply_block_position(cfg: ModelConfig, run: RunConfig, spec: LayerSpec,
     return (x, kv) if prefill else x
 
 
+# matmuls without batch dims: what "dots" remat keeps for the backward
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, run: RunConfig):
+    """``fn`` as is ("none"), recomputed whole in the backward ("full"), or
+    recomputed but for its matmuls without batch dims ("dots")."""
+    if run.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if run.remat == "full":
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
+    if run.remat == "dots":
+        return lambda *a: ckpt.checkpoint(
+            fn, *a, use_reentrant=False,
+            context_fn=lambda: ckpt.create_selective_checkpoint_contexts(
+                _dots_policy))
+    raise ValueError(f"remat={run.remat!r} not in ('none', 'dots', 'full')")
+
+
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
@@ -167,8 +200,11 @@ def forward(cfg: ModelConfig, run: RunConfig, params, *, tokens=None,
     positions = torch.arange(ref.shape[1], device=ref.device)[None, :]
     x = _embed_in(cfg, params, tokens, embeddings, positions)
     for layer, p in enumerate(params["blocks"]):
-        x = _apply_block_position(cfg, run, cfg.pattern[layer % cfg.period],
-                                  p, x, positions)
+        spec = cfg.pattern[layer % cfg.period]
+        block = _maybe_remat(
+            lambda x, p, spec=spec: _apply_block_position(
+                cfg, run, spec, p, x, positions), run)
+        x = block(x, p)
     # no MoE layers are ported, so the load-balancing aux loss is zero
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = apply_norm(cfg, params["final_norm"], x)

@@ -13,7 +13,8 @@ so decode attention merges the ranks' partials (``dist.collectives``) and
 the cache never gathers. Every rank holds the params whole and computes
 the whole logits: tensor-parallel params, and with them a "model" axis
 without ``seq_shard``, wait for a later slice, as does a "data" axis
-larger than 1 (both raise ``NotImplementedError``, ROADMAP Queue 1 #8).
+larger than 1 (both raise ``NotImplementedError``: ROADMAP Queue 1 #4.2,
+tensor-parallel params, and #4.1, a data axis larger than 1).
 The reference's guards hold under a mesh: int8 KV raises and paged caches
 raise. Fused sampling runs the sampling kernel under a mesh too: the
 reference takes its plain epilogue there only because its logits arrive
@@ -101,12 +102,12 @@ def _check_mesh(mesh, seq_shard: bool):
             raise NotImplementedError(
                 f"a {axis!r} axis of {dctx.axis_size(axis, mesh)} ranks "
                 f"(batch-sharded rows across ranks) is not ported yet "
-                f"(ROADMAP.md Queue 1 #8)")
+                f"(ROADMAP.md Queue 1 #4.1, a data axis larger than 1)")
     if dctx.axis_size("model", mesh) > 1 and not seq_shard:
         raise NotImplementedError(
             "a 'model' axis without seq_shard needs tensor-parallel params "
             "and kv-head-sharded caches, not ported yet (ROADMAP.md Queue 1 "
-            "#8); serve it with seq_shard=True")
+            "#4.2, tensor-parallel params); serve it with seq_shard=True")
 
 
 @dataclasses.dataclass

@@ -41,3 +41,33 @@ def tree_leaves_with_path(tree, is_leaf: Optional[Callable] = None,
             yield from tree_leaves_with_path(v, is_leaf, path + (i,))
     else:
         yield path, tree
+
+
+def tree_leaves(tree, is_leaf: Optional[Callable] = None) -> list:
+    """The leaves in path order (the order every function here walks)."""
+    return [leaf for _, leaf in tree_leaves_with_path(tree, is_leaf)]
+
+
+def tree_map_multi(fn: Callable, tree, *rest):
+    """``fn(leaf, *leaves of rest at the same path)`` over trees of one
+    structure (``jax.tree.map`` over several trees); a path of ``tree``
+    missing in another raises ``KeyError``."""
+    others = [dict(tree_leaves_with_path(r)) for r in rest]
+    return tree_map_with_path(
+        lambda path, leaf: fn(leaf, *(o[path] for o in others)), tree)
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure holding ``leaves`` in path order."""
+    leaves = list(leaves)
+    n = len(tree_leaves(like))
+    if len(leaves) != n:
+        raise ValueError(f"{len(leaves)} leaves for a structure of {n}")
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def tree_structure(tree) -> str:
+    """The structure as a string, every leaf written ``*``: what a
+    checkpoint records where the reference writes ``str(treedef)``."""
+    return str(tree_map(lambda _: "*", tree))

@@ -84,7 +84,7 @@ def test_unported_layouts_name_their_roadmap_item(qwen):
     model = build(qwen["cfg"])
     for shape, seq_shard in (((2, 1), True), ((1, 2), False)):
         mesh = dctx.Mesh(np.arange(2).reshape(shape), ("data", "model"))
-        with pytest.raises(NotImplementedError, match="Queue 1 #8"):
+        with pytest.raises(NotImplementedError, match=r"Queue 1 #4\.[12]"):
             Engine(model, RunConfig(), device="cpu", mesh=mesh,
                    seq_shard=seq_shard)
 

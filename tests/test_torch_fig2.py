@@ -107,7 +107,7 @@ def test_case_study_serves_exactly_and_sweeps():
     cfg = configs.smoke("distilbert-imdb")
     model = build(cfg)
     engine = Engine(model, RunConfig(attn_impl="pallas"), device="cpu")
-    params = model.init(torch.Generator().manual_seed(0), engine.device)
+    params = out["params"]  # the example's trained params
     tokens, _ = imdb_reviews(n=512, seq_len=48, vocab=cfg.vocab_size,
                              signal_frac=0.15)
     np.testing.assert_array_equal(out["predictions"],

@@ -705,3 +705,70 @@ def test_decode_entries_with_empty_chunks_on_card(cuda, case, entry):
     for x, y in zip(got, want):
         assert (x - y).abs().max().item() <= 1e-4 * max(
             1.0, y.abs().max().item())
+
+
+# The batch DAG's determinism on the card: qwen2-7b's widths at two layers,
+# the DAG's replica shape (4 slots, 64-token prompts + 8 new, cache_pad 8)
+
+
+def _dag_engine(cuda):
+    import dataclasses
+
+    from repro_torch.batch import make_dataset
+    from repro_torch.launch import serve
+    cfg = dataclasses.replace(configs.get("qwen2-7b"), n_layers=2)
+    engine, params = serve.lm_engine(cfg, device=cuda, cache_pad=8)
+    data = make_dataset(8, prompt_len=64, vocab=cfg.vocab_size,
+                        max_new_tokens=8, seed=0)
+    return cfg, engine, params, data
+
+
+@pytest.mark.gpu
+def test_dag_prefill_stage_equals_admission_first_tokens_on_card(cuda):
+    """The DAG's prefill stage (``Engine.prefill``, B = 1, capacity S +
+    cache_pad) and the batcher's admission (``Engine.prefill_into`` into
+    a 4-slot cache of that capacity, or of a larger one) give bit-equal
+    logits, all through the flash kernel: the capacity only pads the
+    cache."""
+    cfg, engine, params, data = _dag_engine(cuda)
+    cache, wide = engine.new_cache(4, 72), engine.new_cache(4, 136)
+    for i in range(data.n_items):
+        prompt = data.tokens[i][None]
+        before = fa_ops.launches
+        a, _ = engine.prefill(params, prompt)
+        b, cache = engine.prefill_into(params, cache, i % 4, prompt)
+        c, wide = engine.prefill_into(params, wide, i % 4, prompt)
+        torch.cuda.synchronize()
+        assert fa_ops.launches == before + 3 * cfg.n_layers
+        assert torch.equal(a, b) and torch.equal(a, c), i
+
+
+@pytest.mark.gpu
+def test_decode_row_does_not_depend_on_other_slots_on_card(cuda):
+    """A decode round's row output is the same bit for bit whatever the
+    other slots hold (free, or other prompts at other depths) and
+    whichever slot the row sits in: the determinism the DAG's one digest
+    across placements, kills and pools rests on."""
+    cfg, engine, params, data = _dag_engine(cuda)
+    tok = torch.tensor([[5], [6], [7], [8]], device=cuda)
+
+    def decode(rows, token=tok):
+        """rows: slot -> (item, prompt length); returns the logits."""
+        cache = engine.new_cache(4, 72)
+        for slot, (item, n) in rows.items():
+            engine.prefill_into(params, cache, slot,
+                                data.tokens[item][None, :n])
+        before = da_ops.launches
+        logits, _ = engine.decode(params, cache, token)
+        torch.cuda.synchronize()
+        assert da_ops.launches == before + cfg.n_layers
+        return logits
+
+    alone = decode({2: (0, 64)})
+    crowded = decode({0: (1, 40), 1: (2, 64), 2: (0, 64), 3: (3, 10)})
+    assert torch.equal(alone[2], crowded[2])
+    # the same row in slot 3, fed slot 2's token
+    moved_tok = tok.clone()
+    moved_tok[3] = tok[2]
+    moved = decode({0: (3, 64), 1: (1, 20), 3: (0, 64)}, moved_tok)
+    assert torch.equal(alone[2], moved[3])

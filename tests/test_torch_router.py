@@ -524,7 +524,6 @@ def test_serve_one_rank_seq_shard_mesh_runs():
     (["--router", "--mesh", "1x2", "--seq-shard"], "serve_cluster --ranks"),
     (["--router", "--mesh", "1x1"], "--seq-shard"),
     (["--router", "--mesh-slices", "2"], "Queue 1 #4.3"),
-    (["--batch-dag"], "next slice"),
     (["--mesh", "1x1", "--seq-shard"], "--router, --calibrate and --http"),
 ])
 def test_serve_modes_not_ported_raise(argv, match):
