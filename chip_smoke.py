@@ -7,9 +7,10 @@ version on the card, drives the port's main paths through their entry
 points and checks what comes out:
 
   (a)  flash attention vs its plain version (incl. qwen2's causal GQA-7
-       prefill shape), timed;
+       prefill shape and phase (q)'s gemma2, nemotron and whisper
+       shapes), timed;
   (a2) decode attention and the fused sampling epilogue vs their plain
-       versions at qwen2-7b's decode shapes, timed;
+       versions at qwen2-7b's decode shapes and phase (q)'s, timed;
   (a3) the int8, paged and paged-int8 decode-attention kernels vs their
        plain versions at qwen2-7b's decode shape (timed, beside the dense
        kernel at the same logical shape) and on edge cases;
@@ -58,7 +59,8 @@ points and checks what comes out:
        ``--router``, ``--calibrate`` and ``--http`` at the smoke config
        ``main`` serves.
   (n)  the batch DAG (``launch.serve.run_batch_dag``) on the full-width
-       ``qwen2-7b`` at the reference CLI's defaults with 64-token prompts:
+       ``qwen2-7b`` at 14 of its 28 layers, at the reference CLI's
+       defaults with 64-token prompts:
        monolithic, parallel, the chaos ladder, a spot mix and all-spot,
        one digest, equal to one batcher's greedy streams; round times and
        a calibrated mono/parallel pair;
@@ -68,7 +70,17 @@ points and checks what comes out:
        and ``examples.sentiment_case_study.main``;
   (p)  ``launch.train`` and ``examples.train_100m`` as a user runs them,
        crashed and resumed bit for bit, and the "pod" step with int8
-       gradients on two ranks sharing the card.
+       gradients on two ranks sharing the card;
+  (q)  the remaining model families, random weights from a seed: (q1)
+       ``gemma2-27b`` at full width and depth (the window and softcap
+       kernel paths, sampling at a 256 000 vocabulary) greedy and fused
+       sampled, held to the plain path; (q2) ``qwen2-moe-a2.7b`` dense
+       and paged, and its three MoE dispatches on one prefill; (q3)
+       ``mamba2-130m`` (no attention), streams against each request
+       alone; (q4) ``nemotron-4-340b`` (head_dim 192) and (q5)
+       ``grok-1-314b`` at full width and 2 layers; (q6) the jamba hybrid
+       at smoke width; (q7) ``whisper-base``: 1 500 encoder frames, then
+       decode steps whose cross-attention runs flash at S 1.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Any failed phase raises, so the script exits non-zero and
@@ -141,6 +153,7 @@ from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.serve import run_offline  # noqa: E402
 from repro_torch.models import RunConfig, build as build_model  # noqa: E402
 from repro_torch.models import attention, transformer  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.common import apply_norm  # noqa: E402
 from repro_torch.models.transformer import Cache, PagedCache  # noqa: E402
 from repro_torch.obs import lint_prometheus  # noqa: E402
@@ -183,6 +196,19 @@ LOGIT_FLOOR = 0.05
 # wrong page or scale gives about 1). Measured on an H100: 0.007 for the
 # dense kernel vs plain paths, 0.012 at most between the serving paths.
 PATH_RTOL = 0.05
+# gemma2's window and softcap cases: randn q and k give scores of std 1,
+# which softcap 50 moves by at most 0.017, and a window edge 64 positions
+# off moves a row's output by less than bf16's absolute tolerance. So
+# there q is scaled by SHARP_Q (a power of two: exact in bf16), which
+# puts the scores at std 32 and their tails past the cap; the kernel is
+# held to its plain version by relative RMS (SHARP_RTOL), over all rows
+# and over the rows a window 64 positions off would cut; and the same
+# kernel called with each planted fault (`sharp_faults`: the softcap or
+# the window dropped, the window 64 positions short or long) must break
+# that bound, or the check is blind and the phase fails.
+SHARP_Q = 32.0
+SHARP_RTOL = LAYER_RTOL
+SHARP_CASES = ("gemma2_prefill_window_softcap", "gemma2_window_softcap")
 
 # main path: distilbert-imdb at full width, seq 512, batches of 32
 MAIN = dict(n_items=512, seq_len=512, batch_size=32, concurrency=8, seed=0)
@@ -207,10 +233,22 @@ CASES = [
     # phase (o)'s held-out set, classified in one batch by distilbert-imdb
     ("trained_classify_bidir", 256, 128, 128, 12, 12, 64, False, None, None,
      torch.bfloat16),
+    # phase (q): gemma2-27b's local-layer prefill of a 4 608-token prompt
+    # (window 4096, softcap 50, GQA 2), nemotron-4-340b's head_dim 192
+    # (GQA 12), whisper-base's cross-attention of one decoder row over its
+    # 1 500 encoder frames (S 1 of a 64-row tile, T no multiple of 64)
+    ("gemma2_prefill_window_softcap", 1, 4608, 4608, 32, 16, 128, True, 4096,
+     50.0, torch.bfloat16),
+    ("nemotron_prefill_d192", 1, 512, 512, 96, 8, 192, True, None, None,
+     torch.bfloat16),
+    ("whisper_cross_s1", 1, 1, 1500, 8, 8, 64, False, None, None,
+     torch.bfloat16),
 ]
-# the flash cases that are timed: the offline main path and one qwen2-7b
-# prefill admission
-TIMED_FLASH = ("main_path_bidir", "qwen2_prefill_gqa7")
+# the flash cases that are timed: the offline main path, one qwen2-7b
+# prefill admission and phase (q)'s three shapes
+TIMED_FLASH = ("main_path_bidir", "qwen2_prefill_gqa7",
+               "gemma2_prefill_window_softcap", "nemotron_prefill_d192",
+               "whisper_cross_s1")
 
 # decode attention: (name, b, h, kv, d, t, lengths, window, cap, dtype).
 # The first case is the serving path's shape (8 slots of a 1024-position
@@ -237,7 +275,16 @@ DECODE_CASES = [
     # prompts, 8 new tokens), a ragged last tile
     ("dag_round", 4, 28, 4, 128, 72, (64, 66, 69, 71), None, None,
      torch.bfloat16),
+    # phase (q): gemma2-27b's local layers in a decode round (4 slots of a
+    # 5 120-position cache, window 4096, softcap 50, GQA 2: rows inside
+    # and past the window) and nemotron-4-340b's head_dim 192 (GQA 12)
+    ("gemma2_window_softcap", 4, 32, 16, 128, 5120, (4700, 4096, 5119, 300),
+     4096, 50.0, torch.bfloat16),
+    ("nemotron_d192", 4, 96, 8, 192, 1024, _PATH_LENGTHS[:4], None, None,
+     torch.bfloat16),
 ]
+# decode cases timed beside the serving path's shape (the first case)
+TIMED_DECODE = ("gemma2_window_softcap", "nemotron_d192")
 
 # fused sampling: (name, B, V, settings, n_split (None: the wrapper's
 # pick), input pattern). The first case is the sampled serving run's
@@ -265,6 +312,9 @@ SAMPLE_CASES = [
     ("admission_b1", 1, VOCAB, PATH_SAMPLING, None, "randn"),
     ("vocab_30522", 8, 30522, PATH_SAMPLING, None, "randn"),
     ("vocab_256000", 8, 256000, PATH_SAMPLING, None, "randn"),
+    # phase (q)'s gemma2-27b sampled round: 4 slots of a 256 000 vocabulary,
+    # which stages only the logits
+    ("gemma2_round_b4_v256000", 4, 256000, PATH_SAMPLING, None, "randn"),
     ("device_memory", 2, 1_000_000, PATH_SAMPLING, None, "randn"),
     ("top_k_1", 8, VOCAB, dict(temperature=0.8, top_k=1), None, "randn"),
     ("top_k_v", 2, VOCAB, dict(temperature=0.8, top_k=VOCAB), None,
@@ -336,6 +386,44 @@ def attention_bound_ms(q, k, v, causal, window) -> tuple:
                                        else "operations")
 
 
+def sharp_faults(window, cap) -> dict:
+    """The planted faults of a sharp case: (window, softcap) the kernel
+    is called with in place of the right ones."""
+    faults = {"softcap off": (window, None)}
+    if window is not None:
+        faults.update({"window off": (None, cap),
+                       "window -64": (window - 64, cap),
+                       "window +64": (window + 64, cap)})
+    return faults
+
+
+def hold_sharp(name, call, want, rows, window, cap) -> dict:
+    """A sharp case (SHARP_CASES): ``call(window, softcap)`` runs the
+    kernel, ``want`` is the plain version's output, ``rows`` indexes the
+    rows a window 64 positions off cuts. The kernel must agree within
+    SHARP_RTOL on all rows and on those; every planted fault must not.
+    Returns the errors, each (all rows, the window's rows)."""
+    def errs(out):
+        return (rel_rms(out.float(), want.float()),
+                rel_rms(out[rows].float(), want[rows].float()))
+    got = errs(call(window, cap))
+    faults = {f: errs(call(*wc)) for f, wc in sharp_faults(window,
+                                                           cap).items()}
+    torch.cuda.synchronize()
+    print(f"kernel {name} (q x {SHARP_Q:g}): relative RMS {got[0]:.3g}, "
+          f"{got[1]:.3g} on the rows the window cuts (tol {SHARP_RTOL}); "
+          f"planted faults " + ", ".join(
+              f"{f} {e[0]:.3g}/{e[1]:.3g}" for f, e in faults.items()))
+    if not all(math.isfinite(e) for e in got) or max(got) > SHARP_RTOL:
+        raise AssertionError(f"{name}: the kernel disagrees with its plain "
+                             f"version: {got}")
+    blind = [f for f, e in faults.items() if not max(e) > SHARP_RTOL]
+    if blind:
+        raise AssertionError(f"{name}: the check passes the planted "
+                             f"faults {blind}: {faults}")
+    return {"rel_rms": got, "faults": faults}
+
+
 def check_kernel(dev) -> dict:
     """Phase (a): the kernel against its plain version, case by case, and
     timed at the main path's shape and at qwen2-7b's prefill."""
@@ -344,16 +432,23 @@ def check_kernel(dev) -> dict:
         g = torch.Generator(device=dev).manual_seed(len(name))
         q, k, v = (torch.randn(shape, generator=g, device=dev, dtype=dtype)
                    for shape in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d)))
+        if name in SHARP_CASES:
+            q = q * SHARP_Q
         out = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
                                      softcap=cap)
         torch.cuda.synchronize()
         ref = flash_attention_ref(q, k, v, causal=causal, window=window,
                                   softcap=cap)
         err = (out.float() - ref.float()).abs().max().item()
-        ok = out.shape == q.shape and math.isfinite(err) and err <= TOL[dtype]
+        if name in SHARP_CASES:
+            hold_sharp(name, lambda w, c: fa_ops.flash_attention(
+                q, k, v, causal=causal, window=w, softcap=c), ref,
+                (slice(None), slice(window - 64, None)), window, cap)
+        tol = math.inf if name in SHARP_CASES else TOL[dtype]
+        ok = out.shape == q.shape and math.isfinite(err) and err <= tol
         print(f"kernel {name}: q{tuple(q.shape)} k{tuple(k.shape)} "
               f"{str(dtype).removeprefix('torch.')} max_abs_err={err:.3g} "
-              f"tol={TOL[dtype]:g} {'ok' if ok else 'FAILED'}")
+              f"tol={tol:g} {'ok' if ok else 'FAILED'}")
         if not ok:
             raise AssertionError(f"flash_attention kernel disagrees with its "
                                  f"plain version on {name}: {err}")
@@ -366,6 +461,8 @@ def check_kernel(dev) -> dict:
     for name in TIMED_FLASH:
         q, k, v, causal, window, cap = inputs[name]
         kv = k.shape[2]
+        if window is not None and cap is None:
+            raise ValueError(f"{name}: sdpa takes no window")
         ms = cuda_ms(lambda: fa_ops.flash_attention(
             q, k, v, causal=causal, window=window, softcap=cap), iters=50)
         kern_ms = kernel_device_ms(lambda: fa_ops.flash_attention(
@@ -373,8 +470,11 @@ def check_kernel(dev) -> dict:
         plain_ms = cuda_ms(lambda: flash_attention_ref(
             q, k, v, causal=causal, window=window, softcap=cap), iters=5)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, S, D)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=kv != q.shape[2]),
+        # no PyTorch call takes a softcap: there sdpa computes another
+        # function, and no library time is kept
+        library_ms = None if cap is not None else cuda_ms(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=kv != q.shape[2]),
             iters=50)
         bound_ms, bound_by = attention_bound_ms(q, k, v, causal, window)
         flops = attention_flops(q, k, causal, window)
@@ -387,7 +487,8 @@ def check_kernel(dev) -> dict:
               f"k{tuple(k.shape)} {'causal' if causal else 'bidir'}: "
               f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; the kernel "
               f"alone {kern_ms:.4f} ms, profiled), plain {plain_ms:.4f} ms, "
-              f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"sdpa {'n/a' if library_ms is None else f'{library_ms:.4f}'}"
+              f" ms, bound {bound_ms:.4f} ms "
               f"({bound_by}); those FLOPs on the fp32 FMA peak (a bf16 time "
               f"below it shows the tensor cores ran) "
               f"{1e3 * flops / PEAK_FLOPS[torch.float32]:.3f} ms")
@@ -437,7 +538,7 @@ def attention_layer_errors(cfg, params, batch) -> list:
         errs.append(float(torch.linalg.vector_norm(ys[0] - ys[1])
                           / torch.linalg.vector_norm(ys[1])))
         x = transformer._apply_block_position(cfg, plain, spec, p, x,
-                                              positions)
+                                              positions)[0]
     return errs
 
 
@@ -689,31 +790,76 @@ def kernel_device_ms(fn, name: str, n: int = 20, flush=None) -> float:
     return us / n / 1e3
 
 
+def time_decode_case(q, k, v, lens, window, cap) -> dict:
+    """One decode case's times: through the wrapper (CUDA events), the
+    kernel alone (profiled), the plain version, sdpa where it computes the
+    same function (no softcap), and the bound."""
+    kw = dict(window=window, softcap=cap)
+    ms = cuda_ms(lambda: da_ops.decode_attention(q, k, v, lens, **kw),
+                 iters=50)
+    kern_ms = kernel_device_ms(
+        lambda: da_ops.decode_attention(q, k, v, lens, **kw), "decode_kernel")
+    plain_ms = cuda_ms(lambda: decode_attention_ref(q, k, v, lens, **kw),
+                       iters=20)
+    t = k.shape[1]
+    pos = torch.arange(t, device=q.device)[None, :]
+    seen = pos <= torch.clamp(lens[:, None], max=t - 1)
+    if window is not None:
+        seen &= pos > lens[:, None] - window
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    library_ms = None if cap is not None else cuda_ms(
+        lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=seen[:, None, None, :], enable_gqa=True),
+        iters=50)
+    bound_ms, bound_by = decode_bound_ms(q, k, lens, t, window)
+    n_split = da_ops._n_split(q, q.shape[0] * k.shape[2], t, window)
+    print(f"kernel decode_attention q{tuple(q.shape)} k{tuple(k.shape)} "
+          f"window {window} softcap {cap}: {ms:.4f} ms (n_split={n_split}; "
+          f"the kernel alone {kern_ms:.4f} ms, profiled), plain "
+          f"{plain_ms:.4f} ms, sdpa "
+          f"{'n/a' if library_ms is None else f'{library_ms:.4f}'} ms, "
+          f"bound {bound_ms:.5f} ms ({bound_by})")
+    return {"shape": [list(q.shape), list(k.shape)], "ms": ms,
+            "kernel_device_ms": kern_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "n_split": n_split}
+
+
 def check_decode_kernel(dev) -> dict:
     """Phase (a2), decode attention: kernel vs plain version case by case,
-    timed at the serving path's shape."""
-    main = None
+    timed at the serving path's shape and at phase (q)'s."""
+    main, timed = None, {}
     for name, b, h, kv, d, t, lengths, window, cap, dtype in DECODE_CASES:
         g = torch.Generator(device=dev).manual_seed(len(name))
         q = torch.randn(b, h, d, generator=g, device=dev, dtype=dtype)
         k, v = (torch.randn(b, t, kv, d, generator=g, device=dev,
                             dtype=dtype) for _ in range(2))
+        if name in SHARP_CASES:
+            q = q * SHARP_Q
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         out = da_ops.decode_attention(q, k, v, lens, window=window,
                                       softcap=cap)
         torch.cuda.synchronize()
         ref = decode_attention_ref(q, k, v, lens, window=window, softcap=cap)
         err = (out.float() - ref.float()).abs().max().item()
-        ok = out.shape == q.shape and math.isfinite(err) and err <= TOL[dtype]
+        if name in SHARP_CASES:
+            hold_sharp(name, lambda w, c: da_ops.decode_attention(
+                q, k, v, lens, window=w, softcap=c), ref,
+                lens >= window - 64, window, cap)
+        tol = math.inf if name in SHARP_CASES else TOL[dtype]
+        ok = out.shape == q.shape and math.isfinite(err) and err <= tol
         print(f"kernel decode_attention {name}: q{tuple(q.shape)} "
               f"k{tuple(k.shape)} lengths {list(lengths)} "
               f"{str(dtype).removeprefix('torch.')} max_abs_err={err:.3g} "
-              f"tol={TOL[dtype]:g} {'ok' if ok else 'FAILED'}")
+              f"tol={tol:g} {'ok' if ok else 'FAILED'}")
         if not ok:
             raise AssertionError(f"decode_attention kernel disagrees with "
                                  f"its plain version on {name}: {err}")
         if main is None:
             main = (q, k, v, lens, window, cap, err)
+        if name in TIMED_DECODE:
+            timed[name] = (q, k, v, lens, window, cap)
+    timed = {name: time_decode_case(*x) for name, x in timed.items()}
 
     q, k, v, lens, window, cap, err = main
     ms = cuda_ms(lambda: da_ops.decode_attention(q, k, v, lens), iters=50)
@@ -743,7 +889,7 @@ def check_decode_kernel(dev) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "n_split": n_split,
-            "kernel_device_ms": kern_ms}
+            "kernel_device_ms": kern_ms, "timed": timed}
 
 
 def sampling_inputs(logits, kw, g):
@@ -1342,11 +1488,15 @@ def decode_attention_in_float64():
         attention.decode_attention_ref = plain
 
 
-def decode_layer_errors(cfg, params, cache, token) -> list:
+def decode_layer_errors(cfg, params, cache, token, kernel_cfg=None,
+                        rows=None) -> list:
     """Per layer: relative RMS error between the decode attention sublayer
     through the kernel and through the plain path, both fed the plain
     path's hidden state at that layer (the cache gets the same k/v from
-    both)."""
+    both), over the batch rows ``rows`` (default all). ``kernel_cfg``
+    (default ``cfg``) is the config the kernel side runs: a planted
+    fault."""
+    kernel_cfg = kernel_cfg or cfg
     lengths = cache.lengths
     x = transformer._embed_in(cfg, params, token, None,
                               lengths[:, None].long())
@@ -1355,14 +1505,17 @@ def decode_layer_errors(cfg, params, cache, token) -> list:
         spec = cfg.pattern[layer % cfg.period]
         c = cache.layers[layer]
         h = apply_norm(cfg, p["norm1"], x)
-        ys = [attention.attn_decode_layer(cfg, p["attn"], h, c["k"], c["v"],
+        ys = [attention.attn_decode_layer(c_, p["attn"], h, c["k"], c["v"],
                                           lengths, mixer=spec.mixer,
                                           impl=impl)[0]
-              for impl in ("pallas", "xla")]
-        errs.append(float(torch.linalg.vector_norm(ys[0].float()
-                                                   - ys[1].float())
-                          / torch.linalg.vector_norm(ys[1].float())))
-        x = transformer._mlp_residual(cfg, spec, p, x + ys[1])
+              for c_, impl in ((kernel_cfg, "pallas"), (cfg, "xla"))]
+        got, want = (y.float() if rows is None else y[rows].float()
+                     for y in ys)
+        errs.append(float(torch.linalg.vector_norm(got - want)
+                          / torch.linalg.vector_norm(want)))
+        x = transformer._mlp_residual(
+            cfg, RunConfig(), spec, p,
+            transformer._mixer_residual(cfg, p, x, ys[1]))[0]
     return errs
 
 
@@ -2149,7 +2302,9 @@ def paged_layer_errors(cfg, params, cache, token) -> list:
             k_scale=c.get("k_scale"), v_scale=c.get("v_scale"))[0].float()
             for impl in ("pallas", "xla")]
         errs.append(rel_rms(ys[0], ys[1]))
-        x = transformer._mlp_residual(cfg, spec, p, x + ys[1].to(x.dtype))
+        x = transformer._mlp_residual(
+            cfg, RunConfig(), spec, p,
+            transformer._mixer_residual(cfg, p, x, ys[1].to(x.dtype)))[0]
     return errs
 
 
@@ -2173,8 +2328,9 @@ def tame_attention(cfg, params):
     hold one serving path to another."""
     d = cfg.d_model
     for p in params["blocks"]:
-        p["attn"]["wq"].mul_(math.sqrt(cfg.n_heads / d))
-        p["attn"]["wk"].mul_(math.sqrt(cfg.n_kv_heads / d))
+        if "attn" in p:  # an SSM layer has no q/k
+            p["attn"]["wq"].mul_(math.sqrt(cfg.n_heads / d))
+            p["attn"]["wk"].mul_(math.sqrt(cfg.n_kv_heads / d))
 
 
 def paged_copy(engine, cache, seed: int = 0) -> PagedCache:
@@ -2753,7 +2909,8 @@ class _CallSpy:
     """Counts the calls of ``names`` on ``target`` (an engine or a module)
     inside the block: ``by_name`` per name, ``calls`` in all. With
     ``keep``, ``log`` holds each call's (arguments, result, host
-    seconds)."""
+    seconds), or, where ``keep`` is a function, what ``keep(name,
+    arguments, result)`` returns."""
 
     def __init__(self, target, names=ADMISSIONS, keep=False):
         self.target, self.names, self.keep = target, names, keep
@@ -2771,7 +2928,9 @@ class _CallSpy:
                 self.by_name[_name] += 1
                 t0 = time.perf_counter()
                 out = _fn(*a, **kw)
-                if self.keep:
+                if callable(self.keep):
+                    self.log.append(self.keep(_name, a, out))
+                elif self.keep:
                     self.log.append((a, out, time.perf_counter() - t0))
                 return out
             setattr(self.target, name, counted)
@@ -3813,6 +3972,637 @@ def run_training_entry_points(dev) -> dict:
     return {"cli": finish_train_cli(cli), "pod": pod}
 
 
+# ---------------------------------------------------------------------------
+# Phase (q): the remaining model families
+# ---------------------------------------------------------------------------
+
+FAMILY_SEED = SEED + 20
+# (q1) gemma2-27b at full width: 8 requests over 4 slots of a 5 120-position
+# cache, two prompts past the 4 096-token window of the local layers
+GEMMA_PROMPTS = (4608, 4352, 256, 1024, 2048, 512, 3072, 768)
+GEMMA = dict(n_slots=4, max_len=5120, new_tokens=(16, 33))
+# (q2) qwen2-moe-a2.7b: 16 requests of 64-512 tokens over 8 slots
+MOE = dict(n_requests=16, n_slots=8, prompt_len=(64, 513),
+           new_tokens=(8, 25), max_len=544)
+MOE_PREFILL_LEN = 512
+# (q3) mamba2-130m: prompts of at most one 128-token SSD chunk or whole
+# chunks (a 192-token prompt raises, as in the reference)
+MAMBA_PROMPTS = (64, 100, 128, 256, 384, 512, 32, 128, 256, 17, 640, 128,
+                 96, 384, 256, 128)
+MAMBA = dict(n_slots=8, max_len=704, new_tokens=(8, 25))
+# (q4)/(q5) nemotron-4-340b and grok-1-314b at full width, 2 layers each
+DEEP_LAYERS = 2
+DEEP = dict(n_requests=4, n_slots=4, prompt_len=(128, 513),
+            new_tokens=(8, 17), max_len=544)
+# (q6) jamba at the registry's smoke width (one full-width 8-layer block
+# holds about 45 B params, 90 GB); smoke SSD chunk 8
+JAMBA_PROMPTS = (3, 5, 8, 16, 24, 8, 16, 5)
+# (q7) whisper-base: Whisper's 30 s window of 1 500 encoder frames
+WHISPER = dict(batch=2, frames=1500, prompt=16, steps=32)
+# einsum and scatter dispatch the same tokens: their layer outputs agree to
+# bf16 rounding of the combine (relative RMS); ragged (dropless) agrees
+# with einsum's routed output when fed only the (token, choice) pairs
+# einsum kept, and on whole layers where nothing drops
+MOE_IMPL_RTOL = 1e-2
+# the fewest kept (token, choice) pairs a layer's comparison may rest on
+# (a call keeps at least one expert's capacity, 36 pairs at 512 tokens)
+MOE_MIN_KEPT = 32
+
+
+def attention_layers(cfg) -> int:
+    return sum(1 for layer in range(cfg.n_layers)
+               if cfg.pattern[layer % cfg.period].mixer.startswith("attn"))
+
+
+def family_model(cfg, dev, tame: bool = True):
+    """A model at ``cfg`` with random weights from FAMILY_SEED on the card
+    (q/k tamed unless ``tame`` is False), and its size in GB."""
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(FAMILY_SEED),
+                        dev)
+    if tame and not cfg.encdec:
+        tame_attention(cfg, params)
+    torch.cuda.synchronize()
+    gb = sum(t.numel() * t.element_size()
+             for _, t in tree_leaves_with_path(params)) / 1e9
+    print(f"{cfg.name}: {model.n_params / 1e9:.2f} B params, {gb:.2f} GB, "
+          f"{cfg.n_layers} layers, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def family_requests(vocab, prompt_lens, new_tokens, seed):
+    rng = np.random.default_rng(seed)
+    return [Request(rid, rng.integers(0, vocab, n).astype(np.int32),
+                    max_new_tokens=int(rng.integers(*new_tokens)))
+            for rid, n in enumerate(prompt_lens)]
+
+
+def family_serve(engine, params, cfg, reqs, n_slots, max_len, **kw) -> dict:
+    """``reqs`` through one ContinuousBatcher, launch counts zeroed just
+    before and read just after, held to what the path must launch: flash
+    once an attention layer per admission (a paged admission runs the
+    plain chunked path), decode (dense or paged) once an attention layer
+    per round, the sampling kernel once per sampled call."""
+    reqs = [Request(r.rid, r.prompt, r.max_new_tokens) for r in reqs]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = serve_cluster.serve(engine, params, reqs, n_slots=n_slots,
+                              max_len=max_len, **kw)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    b = res["batcher"]
+    if b.take_rejected() or len(res["completed"]) != len(reqs):
+        raise AssertionError(f"{cfg.name}: not every request completed")
+    n_attn, paged = attention_layers(cfg), kw.get("paged", False)
+    want = dict(NO_LAUNCHES,
+                fused_sample=(len(reqs) + b.decode_dispatches
+                              if b.fused_sampling else 0))
+    want["paged_decode_attention" if paged else "decode_attention"] = \
+        n_attn * b.decode_dispatches
+    want["flash_attention"] = 0 if paged else n_attn * len(reqs)
+    if counts != want:
+        raise AssertionError(f"{cfg.name}: launches {counts}, want {want}")
+    streams = {r.rid: list(r.generated) for r in reqs}
+    if not all(len(s) == r.max_new_tokens for s, r in
+               zip(streams.values(), reqs)):
+        raise AssertionError(f"{cfg.name}: short streams")
+    out = {"counts": counts, "rounds": b.rounds, "wall_s": res["wall_s"],
+           "decode_ms": 1e3 * res["bucket_s"]["decode_attention"]
+           / max(b.rounds, 1),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "streams": streams, "requests": reqs}
+    del res, b
+    return out
+
+
+def serve_line(label, r) -> str:
+    return (f"{label}: {r['rounds']} rounds in {r['wall_s']:.2f} s "
+            f"({1e3 * r['wall_s'] / r['rounds']:.1f} ms a round with "
+            f"admissions; decode {r['decode_ms']:.1f} ms a round), peak "
+            f"{r['peak_gb']:.2f} GB, launches {r['counts']}")
+
+
+def sampled_check(engine, params, cfg, reqs, n_slots, max_len) -> dict:
+    """The fused-sampled run, every epilogue call held to the plain
+    version (top-p near-ties only)."""
+    with _SampleSpy() as spy:
+        res = family_serve(engine, params, cfg, reqs, n_slots, max_len,
+                           fused_sampling=True, **PATH_SAMPLING)
+    flips = spy.flips()
+    shapes = sorted({tuple(i["logits"].shape) for i, _ in spy.calls})
+    n_calls = len(spy.calls)
+    del spy
+    check_flips(f"{cfg.name} serving", PATH_SAMPLING, flips)
+    res.update(epilogue_calls=n_calls, flips=len(flips),
+               epilogue_shapes=shapes)
+    return res
+
+
+def sharp_layer_errors(cfg, params, cache, token) -> dict:
+    """``decode_layer_errors`` where the scores reach gemma2's softcap:
+    every layer's wq scaled by SHARP_Q in place (tamed scores have a std
+    near 1) and scaled back after (a power of two: exact). The kernel
+    must agree within SHARP_RTOL on every layer, and each planted fault
+    (`sharp_faults`) must break that bound: the softcap's on every layer,
+    the window's on every local layer, over the rows a window 64 positions
+    off cuts."""
+    local = [n for n in range(cfg.n_layers)
+             if cfg.pattern[n % cfg.period].mixer == "attn_local"]
+    cut = cache.lengths >= cfg.window - 64
+    for p in params["blocks"]:
+        p["attn"]["wq"].mul_(SHARP_Q)
+    try:
+        with torch.no_grad():
+            got = decode_layer_errors(cfg, params, cache, token)
+            faults = {f: decode_layer_errors(
+                cfg, params, cache, token, dataclasses.replace(
+                    cfg, window=w, attn_softcap=c),
+                rows=None if w == cfg.window else cut)
+                for f, (w, c) in sharp_faults(cfg.window,
+                                              cfg.attn_softcap).items()}
+    finally:
+        for p in params["blocks"]:
+            p["attn"]["wq"].div_(SHARP_Q)
+    caught = {f: min(e if f == "softcap off" else [e[n] for n in local])
+              for f, e in faults.items()}
+    print(f"gemma2-27b per-layer decode attention with wq x {SHARP_Q:g} "
+          f"(scores past the softcap): kernel vs plain relative RMS max "
+          f"{max(got):.3g} (tol {SHARP_RTOL}); planted faults, least error "
+          f"over the layers each touches (the window's, over the "
+          f"{int(cut.sum())} rows it cuts): " + ", ".join(
+              f"{f} {e:.3g}" for f, e in caught.items()))
+    if not all(math.isfinite(e) for e in got) or max(got) > SHARP_RTOL:
+        raise AssertionError(f"gemma2 sharp decode sublayer disagrees: "
+                             f"{got}")
+    blind = [f for f, e in caught.items() if not e > SHARP_RTOL]
+    if blind:
+        raise AssertionError(f"gemma2 per-layer check passes the planted "
+                             f"faults {blind}: {caught}")
+    return {"rel_rms": max(got), "faults": caught}
+
+
+def run_gemma2(dev) -> dict:
+    """(q1): gemma2-27b at full width, all 46 layers, tamed q/k."""
+    cfg = configs.get("gemma2-27b")
+    model, params = family_model(cfg, dev)
+    engine = Engine(model, RunConfig(attn_impl="pallas"), device=dev)
+    reqs = family_requests(cfg.vocab_size, GEMMA_PROMPTS,
+                           GEMMA["new_tokens"], FAMILY_SEED)
+    if sum(len(r.prompt) > cfg.window for r in reqs) < 2:
+        raise AssertionError("two prompts must pass the local window")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b in (1, GEMMA["n_slots"]):
+        split = fs.choose_sample_split(b, cfg.vocab_size, sms)
+        if fs.staging(cfg.vocab_size, split) != "logits":
+            raise AssertionError(f"B={b}: staging "
+                                 f"{fs.staging(cfg.vocab_size, split)}")
+    args = (GEMMA["n_slots"], GEMMA["max_len"])
+    greedy = family_serve(engine, params, cfg, reqs, *args)
+    print(serve_line("gemma2-27b greedy", greedy))
+    sampled = sampled_check(engine, params, cfg, reqs, *args)
+    print(serve_line("gemma2-27b fused sampled", sampled)
+          + f"; {sampled['epilogue_calls']} epilogue calls of shapes "
+          f"{sampled['epilogue_shapes']} (\"logits\" staging) held to the "
+          f"plain version: {sampled['flips']} top-p near-tie flips")
+
+    # the kernels inside the real model on one ragged cache: rows past the
+    # window, per layer (decode attention with window and softcap) and a
+    # profiled round
+    check = engine.new_cache(*args)
+    for row, req in enumerate(reqs[:GEMMA["n_slots"]]):
+        engine.prefill_into(params, check, row, req.prompt[None])
+    token = torch.tensor([[greedy["streams"][r.rid][0]]
+                          for r in reqs[:GEMMA["n_slots"]]], device=dev)
+    with torch.no_grad():
+        layer_err = decode_layer_errors(cfg, params, check, token)
+    if max(layer_err) > LAYER_RTOL:
+        raise AssertionError(f"gemma2 decode sublayer disagrees: "
+                             f"{layer_err}")
+    sharp = sharp_layer_errors(cfg, params, check, token)
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_round(lambda: engine.decode(params, check, token))
+    round_peak = torch.cuda.max_memory_allocated() / 1e9
+    idle = 1 - prof["busy_ms"] / prof["window_ms"]
+    print(f"gemma2-27b per-layer decode attention (window 4096, softcap "
+          f"50), kernel vs plain on the same input: relative RMS max "
+          f"{max(layer_err):.3g} over {len(layer_err)} layers (tol "
+          f"{LAYER_RTOL}); a decode round of {GEMMA['n_slots']} rows "
+          f"(lengths {check.lengths.tolist()}): device busy "
+          f"{prof['busy_ms']:.2f} ms of {prof['window_ms']:.2f} ms "
+          f"(idle {idle:.3f}), {prof['launches']:.0f} launches, decode "
+          f"kernel {prof['by_name']['decode_kernel']:.3f} ms, peak "
+          f"{round_peak:.2f} GB; top {prof['breakdown']}")
+    del check
+
+    # the plain attention path, same requests, greedy
+    plain = Engine(model, RunConfig(attn_impl="xla"), device=dev)
+    reset_counts()
+    res = serve_cluster.serve(plain, params, [
+        Request(r.rid, r.prompt, r.max_new_tokens) for r in reqs],
+        n_slots=GEMMA["n_slots"], max_len=GEMMA["max_len"])
+    want = {r.rid: list(r.generated) for r in res["completed"]}
+    if read_counts() != NO_LAUNCHES:
+        raise AssertionError(f"plain path launched {read_counts()}")
+    del res
+    parted = hold_streams(engine, params, "gemma2-27b kernel vs plain",
+                          reqs, greedy["streams"], want)
+    print(f"gemma2-27b kernel path vs plain path, greedy: {parted} of "
+          f"{len(reqs)} streams parted, each at a near-tie")
+    return {"greedy": greedy["counts"], "sampled": sampled["counts"],
+            "round": dict(prof, idle=idle, peak_gb=round_peak),
+            "sharp": sharp}
+
+
+class _MoeImplSpy:
+    """Runs every MoE layer of one prefill through all three impls on the
+    same input: keeps einsum's output and records, per layer, scatter's
+    and ragged's distance from it, whether einsum and scatter drop the
+    same tokens, and the routed experts' output of ragged fed only the
+    (token, choice) pairs einsum kept (the gates of the dropped ones
+    zeroed) against einsum's: every kept pair held, the shared expert
+    left out."""
+
+    def __init__(self):
+        self.apply = moe_lib.moe_apply
+        self.layers = []
+
+    def __call__(self, cfg, mc, p, x, impl="auto"):
+        y, aux = self.apply(cfg, mc, p, x, impl="einsum")
+        ys = self.apply(cfg, mc, p, x, impl="scatter")[0]
+        yr = self.apply(cfg, mc, p, x, impl="ragged")[0]
+        routed = {k: v for k, v in p.items()
+                  if k not in ("shared", "shared_gate")}
+        zero = [self.apply(cfg, mc, routed, x, impl=i)[0].reshape(
+                    -1, x.shape[-1]).abs().amax(-1) == 0
+                for i in ("einsum", "scatter", "ragged")]
+        xt = x.reshape(-1, x.shape[-1])
+        gates, idx, _ = moe_lib._route(mc, p, xt)
+        _, keep = moe_lib._positions_in_expert(
+            mc, idx, moe_lib.capacity(mc, xt.shape[0]))
+        kept = moe_lib._apply_ragged(cfg, mc, p, xt, gates * keep, idx)
+        want = moe_lib._apply_einsum(cfg, mc, p, xt, gates, idx)
+        self.layers.append({
+            "scatter": rel_rms(ys.float(), y.float()),
+            "ragged": rel_rms(yr.float(), y.float()),
+            "ragged_kept": rel_rms(kept.float(), want.float()),
+            "kept_pairs": int(keep.sum()),
+            "same_drops": bool(torch.equal(zero[0], zero[1])),
+            "tokens_dropped": int(zero[0].sum()),
+            "choices_dropped": int((~keep).sum()),
+            "ragged_drops": int(zero[2].sum())})
+        return y, aux
+
+    def __enter__(self):
+        moe_lib.moe_apply = self
+        return self
+
+    def __exit__(self, *exc):
+        moe_lib.moe_apply = self.apply
+
+
+# an engine's admissions and decode rounds, logged by a _CallSpy with
+# keep=round_event
+ROUND_LOG = ("prefill_into", "extend_row", "decode")
+
+
+def round_event(name, args, out) -> tuple:
+    """One ROUND_LOG call: an admission's ("admit", row, prompt, logits),
+    a round's ("round", lengths after it, logits), so two runs can be
+    compared on the logits each saw at a token. An MoE row's logits
+    depend on the round's other rows, so a fresh prefill of the prompt is
+    no judge there."""
+    logits, cache = out
+    if name == "decode":
+        return ("round", cache.lengths.tolist(), logits.float().clone())
+    row, tokens = args[2], args[3]        # (params, cache, row, tokens)
+    tokens = tokens.cpu() if torch.is_tensor(tokens) else tokens
+    return ("admit", int(row), tuple(np.asarray(tokens)[0].tolist()),
+            logits[0].float().clone())
+
+
+def logits_at(log, prompt, i) -> tuple:
+    """(event index, the logits) the request with ``prompt`` took its
+    token ``i`` from, in a log of ``round_event``s."""
+    prompt = tuple(int(t) for t in prompt)
+    start, row = next((n, e[1]) for n, e in enumerate(log)
+                      if e[0] == "admit" and e[2] == prompt)
+    if i == 0:
+        return start, log[start][3]
+    for n, e in enumerate(log[start + 1:], start + 1):
+        if e[0] == "admit" and e[1] == row:
+            break
+        if e[0] == "round" and e[1][row] == len(prompt) + i:
+            return n, e[2][row]
+    raise AssertionError(f"no logits for token {i}")
+
+
+def parted_at_logged_near_ties(reqs, want, got, log_want, log_got) -> int:
+    """Streams equal, or parted at a near-tie of the logits ``want``'s run
+    saw at the first differing token: both tokens within max(LOGIT_FLOOR,
+    the largest difference between the two runs' logits there) of the
+    best, and those logits within PATH_RTOL of each other (each row's
+    logits must depend on its own tokens only: dense MLPs or the "ragged"
+    MoE dispatch). Returns how many parted."""
+    partings = []
+    for r in reqs:
+        a, b = want[r.rid], got[r.rid]
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is not None:
+            n, lw = logits_at(log_want.log, r.prompt, i)
+            partings.append((n, r.rid, i, a[i], b[i], lw,
+                             logits_at(log_got.log, r.prompt, i)[1]))
+    for _, rid, i, x, y, lw, lg in sorted(partings, key=lambda p: p[0]):
+        tie = max(LOGIT_FLOOR, float((lw - lg).abs().max()))
+        gaps = (float(lw.max() - lw[x]), float(lw.max() - lw[y]))
+        err = rel_rms(lg, lw)
+        if max(gaps) > tie or err > PATH_RTOL:
+            raise AssertionError(
+                f"request {rid} parts at token {i} ({x} vs {y}) with logit "
+                f"gaps {gaps}, tie {tie}, logits relative RMS {err}")
+    return len(partings)
+
+
+def run_qwen2_moe(dev) -> dict:
+    """(q2): qwen2-moe-a2.7b at full width, 24 layers, tamed q/k: dense
+    serving on the default MoE dispatch ("auto": einsum at these token
+    counts), then dense and paged bf16 on "ragged", whose rows do not
+    depend on each other (the capacity-bound dispatches make a row's
+    logits move with the free rows' stale tokens, which the dense and
+    paged caches hold differently), held to each other; then the three
+    MoE impls on one prefill."""
+    cfg = configs.get("qwen2-moe-a2.7b")
+    model, params = family_model(cfg, dev)
+    engine = Engine(model, RunConfig(attn_impl="pallas"), device=dev)
+    ragged = Engine(model, RunConfig(attn_impl="pallas", moe_impl="ragged"),
+                    device=dev)
+    reqs = serve_cluster.make_requests(cfg.vocab_size, MOE["n_requests"],
+                                       MOE["prompt_len"], MOE["new_tokens"],
+                                       FAMILY_SEED)
+    args = (MOE["n_slots"], MOE["max_len"])
+    auto = family_serve(engine, params, cfg, reqs, *args)
+    print(serve_line("qwen2-moe-a2.7b dense, auto (einsum)", auto))
+    with _CallSpy(ragged, ROUND_LOG, keep=round_event) as dense_log:
+        dense = family_serve(ragged, params, cfg, reqs, *args)
+    print(serve_line("qwen2-moe-a2.7b dense, ragged", dense))
+    with _CallSpy(ragged, ROUND_LOG, keep=round_event) as paged_log:
+        paged = family_serve(ragged, params, cfg, reqs, *args, paged=True)
+    print(serve_line("qwen2-moe-a2.7b paged bf16, ragged", paged))
+    parted = parted_at_logged_near_ties(reqs, dense["streams"],
+                                        paged["streams"], dense_log,
+                                        paged_log)
+    del dense_log, paged_log
+    differ = sum(auto["streams"][r.rid] != dense["streams"][r.rid]
+                 for r in reqs)
+    print(f"qwen2-moe-a2.7b paged vs dense streams (ragged): {parted} of "
+          f"{len(reqs)} parted, each at a near-tie of the round's own "
+          f"logits; einsum vs ragged dispatch: {differ} of {len(reqs)} "
+          f"streams differ (capacity drops, by design)")
+    if parted > len(reqs) // 3:
+        raise AssertionError(f"{parted} of {len(reqs)} parted")
+    prompt = torch.tensor(np.random.default_rng(FAMILY_SEED).integers(
+        0, cfg.vocab_size, (1, MOE_PREFILL_LEN)).astype(np.int32),
+        device=dev)
+    # the served capacity, then one at which no choice drops (capacity =
+    # the tokens of the call), on the same params
+    roomy = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    impls = {}
+    for label, m in (("served capacity", model),
+                     ("no drops", build_model(roomy))):
+        with _MoeImplSpy() as spy, torch.no_grad():
+            m.prefill(RunConfig(attn_impl="pallas"), params,
+                      {"tokens": prompt})
+        impls[label] = spy.layers
+        worst = {k: max(layer[k] for layer in spy.layers)
+                 for k in ("scatter", "ragged", "ragged_kept")}
+        kept = min(layer["kept_pairs"] for layer in spy.layers)
+        drops = sum(layer["tokens_dropped"] for layer in spy.layers)
+        choices = sum(layer["choices_dropped"] for layer in spy.layers)
+        print(f"qwen2-moe-a2.7b MoE impls on one {MOE_PREFILL_LEN}-token "
+              f"prefill, {label}, {len(spy.layers)} layers: scatter vs "
+              f"einsum relative RMS max {worst['scatter']:.3g}; ragged fed "
+              f"einsum's kept (token, choice) pairs vs einsum, routed "
+              f"experts only, max {worst['ragged_kept']:.3g} over at least "
+              f"{kept} kept pairs a layer; ragged vs einsum whole layers "
+              f"max {worst['ragged']:.3g} (tol {MOE_IMPL_RTOL}); {choices} "
+              f"(token, choice) pairs and {drops} whole tokens dropped by "
+              f"capacity over the layers, the same tokens in einsum and "
+              f"scatter: {all(layer['same_drops'] for layer in spy.layers)};"
+              f" ragged drops "
+              f"{sum(layer['ragged_drops'] for layer in spy.layers)}")
+        held = ("scatter", "ragged_kept") + (
+            ("ragged",) if label == "no drops" else ())
+        if (not all(math.isfinite(layer[k]) for layer in spy.layers
+                    for k in held)
+                or max(worst[k] for k in held) > MOE_IMPL_RTOL
+                or kept < MOE_MIN_KEPT
+                or not all(layer["same_drops"] for layer in spy.layers)
+                or any(layer["ragged_drops"] for layer in spy.layers)
+                or (label == "no drops" and choices)):
+            raise AssertionError(f"MoE impls disagree ({label}): "
+                                 f"{spy.layers}")
+    return {"dense": auto["counts"], "dense_ragged": dense["counts"],
+            "paged": paged["counts"]}
+
+
+def run_mamba2(dev) -> dict:
+    """(q3): mamba2-130m at full width, 24 layers, batcher traffic greedy
+    and fused sampled; each stream against the request served alone."""
+    cfg = configs.get("mamba2-130m")
+    model, params = family_model(cfg, dev)
+    engine = Engine(model, RunConfig(attn_impl="pallas"), device=dev)
+    with expect_raises(ValueError, "divisible by ssd chunk"):
+        engine.prefill(params, np.zeros((1, 3 * cfg.ssm.chunk // 2),
+                                        np.int32))
+    reqs = family_requests(cfg.vocab_size, MAMBA_PROMPTS,
+                           MAMBA["new_tokens"], FAMILY_SEED)
+    args = (MAMBA["n_slots"], MAMBA["max_len"])
+    with _CallSpy(engine, ROUND_LOG, keep=round_event) as log:
+        greedy = family_serve(engine, params, cfg, reqs, *args)
+    print(serve_line("mamba2-130m greedy", greedy))
+    sampled = sampled_check(engine, params, cfg, reqs, *args)
+    print(serve_line("mamba2-130m fused sampled", sampled))
+    # each request alone: its own prefill and decode rounds in a batcher of
+    # the same slots (the same GEMM shapes; a fresh prefill of prompt +
+    # tokens is no judge: its length must fill whole SSD chunks)
+    alone = {}
+    with _CallSpy(engine, ROUND_LOG, keep=round_event) as alone_log:
+        for r in reqs:
+            alone.update(family_serve(engine, params, cfg, [r],
+                                      *args)["streams"])
+    parted = parted_at_logged_near_ties(reqs, alone, greedy["streams"],
+                                        alone_log, log)
+    del log, alone_log
+    print(f"mamba2-130m batcher streams vs each request alone (prefill + "
+          f"decode rounds of its own): {parted} of {len(reqs)} parted, each "
+          f"at a near-tie of the logits each run saw")
+    if parted > len(reqs) // 3:
+        raise AssertionError(f"{parted} of {len(reqs)} parted")
+    return {"greedy": greedy["counts"], "sampled": sampled["counts"]}
+
+
+@contextlib.contextmanager
+def expect_raises(exc, match):
+    try:
+        yield
+    except exc as e:
+        if match not in str(e):
+            raise
+    else:
+        raise AssertionError(f"no {exc.__name__} raised")
+
+
+def run_deep(dev, arch) -> dict:
+    """(q4)/(q5): ``arch`` at full width cut to DEEP_LAYERS layers (its
+    params do not fit on one card), 4 requests greedy on the kernels, held
+    to the plain path."""
+    cfg = dataclasses.replace(configs.get(arch), n_layers=DEEP_LAYERS)
+    model, params = family_model(cfg, dev)
+    engine = Engine(model, RunConfig(attn_impl="pallas"), device=dev)
+    reqs = serve_cluster.make_requests(cfg.vocab_size, DEEP["n_requests"],
+                                       DEEP["prompt_len"], DEEP["new_tokens"],
+                                       FAMILY_SEED)
+    args = (DEEP["n_slots"], DEEP["max_len"])
+    def head_dim(name, a, out):
+        return a[0].shape[-1]
+    with _CallSpy(fa_ops, ("flash_attention",), keep=head_dim) as flash, \
+            _CallSpy(da_ops, ("decode_attention",), keep=head_dim) as decode:
+        greedy = family_serve(engine, params, cfg, reqs, *args)
+    dims = sorted({("flash", d) for d in flash.log}
+                  | {("decode", d) for d in decode.log})
+    if dims != [("decode", cfg.head_dim), ("flash", cfg.head_dim)]:
+        raise AssertionError(f"{arch}: kernels ran at {dims}")
+    print(serve_line(f"{arch} ({DEEP_LAYERS} of "
+                     f"{configs.get(arch).n_layers} layers) greedy", greedy)
+          + f"; flash and decode at head_dim {cfg.head_dim}")
+    plain = Engine(model, RunConfig(attn_impl="xla"), device=dev)
+    res = serve_cluster.serve(plain, params, [
+        Request(r.rid, r.prompt, r.max_new_tokens) for r in reqs],
+        n_slots=args[0], max_len=args[1])
+    want = {r.rid: list(r.generated) for r in res["completed"]}
+    parted = hold_streams(engine, params, f"{arch} kernel vs plain", reqs,
+                          greedy["streams"], want)
+    print(f"{arch} kernel path vs plain path: {parted} of {len(reqs)} "
+          f"streams parted, each at a near-tie")
+    return greedy["counts"]
+
+
+def run_jamba(dev) -> dict:
+    """(q6): jamba at the registry's smoke width: the hybrid cache (SSM
+    state and KV layers) through the batcher, flash and decode on its
+    attention layers."""
+    cfg = configs.smoke("jamba-1.5-large-398b")
+    model, params = family_model(cfg, dev)
+    engine = Engine(model, RunConfig(attn_impl="pallas"), device=dev)
+    reqs = family_requests(cfg.vocab_size, JAMBA_PROMPTS, (4, 13),
+                           FAMILY_SEED)
+    res = family_serve(engine, params, cfg, reqs, 3, 40)
+    print(serve_line(f"jamba smoke ({cfg.n_layers} layers, "
+                     f"{attention_layers(cfg)} attention)", res))
+    return res["counts"]
+
+
+def tame_whisper(cfg, params):
+    """``tame_attention`` for the encoder-decoder's three attentions."""
+    d = cfg.d_model
+    for p in params["enc_blocks"]:
+        for w, heads in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads)):
+            p["attn"][w].mul_(math.sqrt(heads / d))
+    for p in params["dec_blocks"]:
+        for a in ("self_attn", "cross_attn"):
+            p[a]["wq"].mul_(math.sqrt(cfg.n_heads / d))
+            p[a]["wk"].mul_(math.sqrt(cfg.n_kv_heads / d))
+
+
+def run_whisper(dev) -> dict:
+    """(q7): whisper-base at full width: encode 1 500 frames, prefill the
+    decoder teacher-forced, then greedy decode steps; the plain path fed
+    the same tokens."""
+    cfg = configs.get("whisper-base")
+    model, params = family_model(cfg, dev, tame=False)
+    tame_whisper(cfg, params)
+    w = WHISPER
+    g = torch.Generator(device=dev).manual_seed(FAMILY_SEED)
+    batch = {"enc_embeds": torch.randn(w["batch"], w["frames"], cfg.d_model,
+                                       generator=g, device=dev
+                                       ).to(torch.bfloat16),
+             "tokens": torch.randint(0, cfg.vocab_size,
+                                     (w["batch"], w["prompt"]), generator=g,
+                                     device=dev)}
+    max_len = w["prompt"] + w["steps"]
+    runs = {}
+    for impl in ("pallas", "xla"):
+        run = RunConfig(attn_impl=impl)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = model.prefill(run, params, batch,
+                                          max_len=max_len)
+            steps = [logits]
+            tokens = runs["pallas"]["tokens"] if impl == "xla" else []
+            for i in range(w["steps"]):
+                tok = (tokens[i] if impl == "xla"
+                       else steps[-1].argmax(-1, keepdim=True))
+                if impl == "pallas":
+                    tokens.append(tok)
+                logits, cache = model.decode_step(run, params, cache,
+                                                  {"token": tok})
+                steps.append(logits)
+        torch.cuda.synchronize()
+        runs[impl] = {"logits": torch.stack(steps), "tokens": tokens,
+                      "counts": read_counts(),
+                      "s": time.perf_counter() - t0}
+    n = cfg.n_layers
+    want = dict(NO_LAUNCHES, flash_attention=cfg.n_enc_layers + 2 * n
+                + w["steps"] * n, decode_attention=w["steps"] * n)
+    if runs["pallas"]["counts"] != want or runs["xla"]["counts"] != \
+            NO_LAUNCHES:
+        raise AssertionError(f"whisper launches {runs['pallas']['counts']},"
+                             f" want {want}; plain {runs['xla']['counts']}")
+    got, ref = runs["pallas"]["logits"], runs["xla"]["logits"]
+    if not torch.isfinite(got).all():
+        raise AssertionError("whisper logits not finite")
+    err = max(rel_rms(a.float(), b.float()) for a, b in zip(got, ref))
+    same = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    print(f"whisper-base: encode {w['frames']} frames x {w['batch']}, "
+          f"prefill {w['prompt']} tokens, {w['steps']} greedy decode steps "
+          f"on the kernels in {runs['pallas']['s']:.2f} s, launches "
+          f"{runs['pallas']['counts']} (cross-attention through flash at "
+          f"S 1 x T {w['frames']}); the plain path fed the same tokens: "
+          f"logits relative RMS max {err:.3g} over the steps (tol "
+          f"{PATH_RTOL}), argmax equal in {same:.3f} of rows")
+    if err > PATH_RTOL:
+        raise AssertionError(f"whisper kernel vs plain: {err}")
+    return runs["pallas"]["counts"]
+
+
+def run_families(phase) -> dict:
+    """Phase (q), path by path; returns each path's launch counts."""
+    paths = {}
+    for name, fn in (("gemma2_27b", run_gemma2),
+                     ("qwen2_moe_a2_7b", run_qwen2_moe),
+                     ("mamba2_130m", run_mamba2),
+                     (f"nemotron_4_340b_{DEEP_LAYERS}_layers",
+                      lambda d: run_deep(d, "nemotron-4-340b")),
+                     (f"grok_1_314b_{DEEP_LAYERS}_layers",
+                      lambda d: run_deep(d, "grok-1-314b")),
+                     ("jamba_smoke", run_jamba),
+                     ("whisper_base", run_whisper)):
+        out = phase(f"(q) {name}", fn)
+        if name in ("gemma2_27b", "qwen2_moe_a2_7b", "mamba2_130m"):
+            for mode, counts in out.items():
+                if mode not in ("round", "sharp"):
+                    paths[f"{name}_{mode}"] = counts
+        else:
+            paths[name] = out
+        torch.cuda.empty_cache()
+    return paths
+
+
 def control_plane_phases(phase) -> dict:
     """Phases (i)-(m); returns their paths' launch counts."""
     paths = {"fig2_distilbert": phase(
@@ -3901,6 +4691,8 @@ def main():
     torch.cuda.empty_cache()
     phase("(p) training entry points, crash/resume, pod step",
           run_training_entry_points)
+    torch.cuda.empty_cache()
+    paths.update(run_families(phase))
     # the path each kernel must have been launched on
     main_path = {"flash_attention": "generate_qwen2_7b",
                  "decode_attention": "generate_qwen2_7b",

@@ -68,8 +68,9 @@
 //     int8 scales arrive beside the data and are applied in registers;
 //   * all G query heads of the kv head are processed together, so each K/V
 //     tile is read from memory once for the group. A warp takes a head:
-//     each lane holds 16 bytes of q and of a K row, the D reduction runs
-//     across D / 8 (bf16) lanes with warp shuffles, and the warp then runs
+//     each lane holds 16 bytes of q and of a K row (48 at D = 192, where a
+//     row's 24 parts are split over 8 lanes), the D reduction runs across
+//     D / 8 (bf16, D <= 128) lanes with warp shuffles, and the warp then runs
 //     the head's online-softmax update over the tile; then every thread
 //     accumulates P V for (head, 8 bytes of D) items. Eight warps rather
 //     than four: with about two blocks an SM, the warps of a block are what
@@ -167,6 +168,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
+// lanes that share a row's dot product: the largest power of two that
+// divides the row's 16-byte parts, at most a warp (a row of 24 parts, bf16
+// at D = 192, takes 8 lanes of 3 parts each)
+__host__ __device__ constexpr int lanes_per_row(int parts) {
+  int lanes = 1;
+  while (lanes < 32 && parts % (2 * lanes) == 0) lanes *= 2;
+  return lanes;
+}
+
 template <typename KVT>
 size_t smem_bytes(int g, int d) {
   const size_t kv_tile = (size_t)BLOCK_T * d * sizeof(KVT);
@@ -187,8 +197,9 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
                 "a non-int8 cache has q's dtype");
   constexpr int VEC = 16 / sizeof(KVT);  // elements per 16-byte load
   static_assert(D % VEC == 0, "rows are loaded 16 bytes at a time");
-  constexpr int LPP = D / VEC;           // lanes (16-byte parts) a row
-  static_assert(LPP <= 32, "a K row fits one warp");
+  constexpr int NPART = D / VEC;         // 16-byte parts a row
+  constexpr int LPP = lanes_per_row(NPART);  // lanes a row, a power of 2
+  constexpr int PPL = NPART / LPP;       // parts a lane (3 at D = 192)
   constexpr int PPS = 32 / LPP;          // positions a warp step
   constexpr int STEPS = BLOCK_T / PPS;   // warp steps a tile
   constexpr int PVV = VEC / 2;           // elements of a P V item (8 bytes)
@@ -241,8 +252,8 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
     const int n = min(BLOCK_T, hi + 1 - t0);
     KVT* kd = k_s + stage * KV_TILE;
     KVT* vd = v_s + stage * KV_TILE;
-    for (int c = tid; c < BLOCK_T * LPP; c += THREADS) {
-      const int j = c / LPP, part = c % LPP;
+    for (int c = tid; c < BLOCK_T * NPART; c += THREADS) {
+      const int j = c / NPART, part = c % NPART;
       if (j >= n) continue;
       const int pos = t0 + j;
       long row;
@@ -290,24 +301,32 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
     const float* vst = vs_s + stage * BLOCK_T;
 
     // scores and the online-softmax update, one head a warp. A lane holds
-    // 16 bytes of q and reads 16 bytes of each of STEPS K rows; the partial
-    // dots are all formed first, then reduced across the LPP lanes of a
-    // row, so neither the loads nor the shuffles wait on each other.
+    // PPL 16-byte parts of q (parts part, part + LPP, ...) and reads the
+    // same parts of each of STEPS K rows; the partial dots are all formed
+    // first, then reduced across the LPP lanes of a row, so neither the
+    // loads nor the shuffles wait on each other.
     for (int g = warp; g < G; g += WARPS) {
       const int part = lane % LPP, grp = lane / LPP;
-      float qr[VEC];
+      float qr[PPL * VEC];
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) qr[e] = q_s[g * D + part * VEC + e];
+      for (int pp = 0; pp < PPL; ++pp)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          qr[pp * VEC + e] = q_s[g * D + (part + pp * LPP) * VEC + e];
       float dots[STEPS];
 #pragma unroll
       for (int st = 0; st < STEPS; ++st) {  // rows past n read what is there
         const int j = st * PPS + grp;
-        const uint4 raw =
-            *reinterpret_cast<const uint4*>(kt + j * D + part * VEC);
-        const KVT* kx = reinterpret_cast<const KVT*>(&raw);
         float dot = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) dot = fmaf(qr[e], to_float(kx[e]), dot);
+        for (int pp = 0; pp < PPL; ++pp) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(
+              kt + j * D + (part + pp * LPP) * VEC);
+          const KVT* kx = reinterpret_cast<const KVT*>(&raw);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            dot = fmaf(qr[pp * VEC + e], to_float(kx[e]), dot);
+        }
         dots[st] = dot;
       }
 #pragma unroll
@@ -500,6 +519,7 @@ int dispatch_head_dim(const Params& p, int batch, int d, cudaStream_t s) {
     case 32: return launch<T, KVT, PAGED, 32, PARTIALS>(p, batch, s);
     case 64: return launch<T, KVT, PAGED, 64, PARTIALS>(p, batch, s);
     case 128: return launch<T, KVT, PAGED, 128, PARTIALS>(p, batch, s);
+    case 192: return launch<T, KVT, PAGED, 192, PARTIALS>(p, batch, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -37,7 +37,7 @@ from repro_torch.kernels.decode_attention.ref import (
     row_lengths)
 
 SOURCE = Path(__file__).with_name("decode_attention.cu")
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128, 192)  # the kernel's instantiations
 DTYPES = (torch.float32, torch.bfloat16)
 TILE = 64           # positions per kernel tile (BLOCK_T)
 CLUSTER_LIMIT = 8   # the portable thread-block cluster size

@@ -22,7 +22,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 SOURCE = Path(__file__).with_name("flash_attention.cu")
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128, 192)  # the kernel's instantiations
 DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0  # kernel launches; callers reset it to count one run

@@ -1,5 +1,6 @@
 """GQA attention: full-sequence (train / prefill / classification),
-single-token decode and chunked paged prefill paths.
+single-token decode, chunked paged prefill and encoder-decoder
+cross-attention paths.
 
 Counterpart of ``repro.models.attention``: grouped-query attention,
 causal / bidirectional / sliding-window masks, logit softcapping, QKV /
@@ -435,3 +436,32 @@ def attn_extend_layer_paged(cfg: ModelConfig, p, x, k_pages, v_pages,
     if quant:
         return out_proj(p, o), k_pages, v_pages, k_scale, v_scale
     return out_proj(p, o), k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attn_forward(cfg: ModelConfig, p, x, enc_k, enc_v, *,
+                       impl: str = "xla"):
+    """Decoder cross-attention of x (B,S,D) against precomputed encoder
+    K/V (B,T,KV,hd), bidirectional. Under "pallas" it runs the flash
+    kernel, at S = 1 in a decode step; "seq_shard" takes the plain path,
+    as the reference's does."""
+    q = _project(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"].to(q.dtype)
+    o = attend_full(q, enc_k, enc_v, mask_kind="bidir", cap=cfg.attn_softcap,
+                    impl="xla" if impl == "seq_shard" else impl)
+    return out_proj(p, o)
+
+
+def cross_kv(cfg: ModelConfig, p, enc_out):
+    """The encoder output's K/V for one decoder layer's cross-attention."""
+    k = _project(enc_out, p["wk"])
+    v = _project(enc_out, p["wv"])
+    if "bk" in p:
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    return k, v

@@ -1,8 +1,10 @@
 """Config -> Model dispatch.
 
-Counterpart of ``repro.models.model_zoo`` for the decoder / encoder
-families the port runs so far (``build`` raises ``NotImplementedError``
-for the rest).
+Counterpart of ``repro.models.model_zoo``: ``build(cfg)`` returns a
+``Model`` facade whose methods close over the family's implementation
+(decoder LM or encoder classifier in ``transformer``, encoder-decoder in
+``encdec``). The reference's dry-run input specs (``input_specs``,
+``SHAPES``) wait for the compile-only analysis (ROADMAP Queue 1 #6).
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.common import (ModelConfig, RunConfig, init_params,
                                        param_count)
 
@@ -34,6 +36,10 @@ class Model:
     # -- compute --------------------------------------------------------
     def forward(self, run: RunConfig, params, batch):
         """batch dict -> (logits, aux). Used by serving and eval."""
+        if self.cfg.encdec:
+            return encdec.forward(self.cfg, run, params,
+                                  enc_embeds=batch["enc_embeds"],
+                                  tokens=batch["tokens"])
         return transformer.forward(self.cfg, run, params,
                                    tokens=batch.get("tokens"),
                                    embeddings=batch.get("embeddings"))
@@ -42,7 +48,16 @@ class Model:
                 max_len: Optional[int] = None, seq_shards: int = 1,
                 shard: int = 0):
         """batch dict -> (last-token logits (B,V), populated Cache; block
-        ``shard`` of ``seq_shards`` along the sequence)."""
+        ``shard`` of ``seq_shards`` along the sequence). An encoder-decoder
+        batch holds ``enc_embeds`` and ``tokens`` and yields an
+        ``EncDecCache``."""
+        if self.cfg.encdec:
+            if seq_shards != 1:
+                raise ValueError("encoder-decoder caches are not "
+                                 "sequence-sharded")
+            return encdec.prefill(self.cfg, run, params,
+                                  enc_embeds=batch["enc_embeds"],
+                                  tokens=batch["tokens"], max_len=max_len)
         return transformer.prefill(self.cfg, run, params,
                                    tokens=batch.get("tokens"),
                                    embeddings=batch.get("embeddings"),
@@ -54,19 +69,33 @@ class Model:
         embeds/writes/attends at its own ``cache.lengths[b]`` and every
         row's length advances by 1; the cache is updated in place and
         returned."""
+        if self.cfg.encdec:
+            return encdec.decode_step(self.cfg, run, params, cache,
+                                      batch["token"])
         return transformer.decode_step(self.cfg, run, params, cache,
                                        token=batch.get("token"),
                                        embedding=batch.get("embedding"))
 
     # -- cache ----------------------------------------------------------
     def cache_specs(self, batch: int, max_len: int, kv_dtype: str = "bf16",
-                    seq_shards: int = 1):
+                    seq_shards: int = 1, *, enc_len: Optional[int] = None):
         """The cache on the meta device (shapes and dtypes only)."""
-        return transformer.cache_specs(self.cfg, batch, max_len, kv_dtype,
-                                       seq_shards=seq_shards)
+        return self.init_cache(batch, max_len, kv_dtype, device="meta",
+                               seq_shards=seq_shards, enc_len=enc_len)
 
     def init_cache(self, batch: int, max_len: int, kv_dtype: str = "bf16",
-                   device="cuda", seq_shards: int = 1):
+                   device="cuda", seq_shards: int = 1, *,
+                   enc_len: Optional[int] = None):
+        """An empty cache on ``device``; an encoder-decoder model's holds
+        ``enc_len`` (default ``max_len``) cross-attention positions and
+        is bf16 only."""
+        if self.cfg.encdec:
+            if kv_dtype != "bf16":
+                raise ValueError(
+                    "encoder-decoder models have no int8 KV layout "
+                    "(cross-attn caches stay bf16)")
+            return encdec.init_cache(self.cfg, batch, max_len,
+                                     enc_len or max_len, device=device)
         return transformer.init_cache(self.cfg, batch, max_len, kv_dtype,
                                       device=device, seq_shards=seq_shards)
 
@@ -75,12 +104,14 @@ class Model:
         """Block-paged cache on the meta device (decoder-only,
         attention-only patterns; raises ValueError otherwise: those stay
         on the dense cache)."""
+        self._check_decoder_only()
         return transformer.paged_cache_specs(self.cfg, batch, n_pages,
                                              page_size, max_pages, kv_dtype)
 
     def init_paged_cache(self, batch: int, n_pages: int, page_size: int,
                          max_pages: int, kv_dtype: str = "bf16",
                          device="cuda"):
+        self._check_decoder_only()
         return transformer.init_paged_cache(self.cfg, batch, n_pages,
                                             page_size, max_pages, kv_dtype,
                                             device=device)
@@ -90,8 +121,17 @@ class Model:
         start 0 or warm continuation past a shared prefix), one call
         either way. Returns (last-token logits (1,V), cache), written in
         place."""
+        if self.cfg.encdec:
+            raise ValueError("extend_row requires a PagedCache "
+                             "(decoder-only models)")
         return transformer.extend_paged(self.cfg, run, params, cache, row,
                                         tokens)
+
+
+    def _check_decoder_only(self):
+        if self.cfg.encdec:
+            raise ValueError("encoder-decoder models have no paged cache "
+                             "layout (cross-attn KV is per-request dense)")
 
 
 def _active_params(cfg: ModelConfig, specs) -> int:
@@ -111,10 +151,7 @@ def _active_params(cfg: ModelConfig, specs) -> int:
 
 
 def build(cfg: ModelConfig) -> Model:
-    if cfg.encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            f"(ROADMAP.md Queue 1 #5, remaining model families)")
-    specs = transformer.lm_specs(cfg)
+    specs = (encdec.encdec_specs(cfg) if cfg.encdec
+             else transformer.lm_specs(cfg))
     return Model(cfg=cfg, param_specs=specs,
                  active_param_count=_active_params(cfg, specs))

@@ -5,14 +5,23 @@ pattern position's parameters along a leading "layers" axis and scans
 over layer groups; here ``params["blocks"]`` is a tuple of ``n_layers``
 per-layer trees (layer ``l`` runs pattern position ``l % period``) and
 the layers run in a Python loop. The decode caches follow the params:
-``Cache.layers`` is a tuple of per-layer ``{"k", "v"}`` dicts of
+``Cache.layers`` is a tuple of per-layer dicts: ``{"k", "v"}`` of
 (B, T, KV, hd), plus fp32 ``k_scale``/``v_scale`` (B, T, KV, 1) beside
-int8 k/v; ``PagedCache.layers`` holds per-layer pools (P, ps, KV, hd)
-(and (P, ps, KV, 1) scale pools) where the reference stacks (G, ...) per
-pattern position.
+int8 k/v, for an attention layer, and ``{"conv_x", "conv_B", "conv_C",
+"state"}`` (bf16 conv windows, fp32 SSD state: ``models.ssm.ssm_cache``)
+for an SSM layer; ``PagedCache.layers`` holds per-layer pools
+(P, ps, KV, hd) (and (P, ps, KV, 1) scale pools) where the reference
+stacks (G, ...) per pattern position.
+
+Every block pattern of the reference runs: attention ("attn",
+"attn_local") or Mamba-2 ("ssm") mixers, dense or MoE (``models.moe``)
+MLPs, and gemma2's sandwich norms (a norm after the mixer and after the
+MLP). int8 KV touches attention layers only; paged caches take
+attention-only patterns, as in the reference.
 
 Entry points:
-  * forward      — full-sequence logits (training / eval / classify)
+  * forward      — full-sequence logits (training / eval / classify) and
+                   the MoE load-balancing loss averaged over layers
   * prefill      — full-sequence pass that also builds the decode cache
   * decode_step  — one token per row in, logits out, on a dense or paged
                    cache; the cache is updated IN PLACE (the reference
@@ -20,8 +29,8 @@ Entry points:
   * extend_paged — chunked prefill-with-history of one paged row, in place
 
 Under a sequence-sharded mesh (``serving.Engine(mesh=, seq_shard=True)``)
-a dense cache holds one rank's block of every layer's sequence dim,
-(B, max_len / M, KV, hd) for M blocks over "model", with ``lengths``
+a dense cache holds one rank's block of every attention layer's sequence
+dim, (B, max_len / M, KV, hd) for M blocks over "model", with ``lengths``
 global (``Cache.seq_shards`` = M); prefill computes the whole prompt on
 every rank and keeps the rank's slice of its K/V.
 
@@ -31,11 +40,6 @@ pass (``torch.utils.checkpoint``), "dots" keeps only the outputs of the
 layer's matmuls without batch dims (the reference's
 ``dots_with_no_batch_dims_saveable``: ``mm``/``addmm`` kept, attention's
 batched ``bmm`` recomputed).
-
-Ported so far: attention mixers ("attn", "attn_local") with dense MLPs,
-and bf16 or int8 KV in dense or paged caches. SSM mixers, MoE MLPs and
-sandwich norms raise ``NotImplementedError`` (ROADMAP Queue 1 #5,
-remaining model families).
 """
 from __future__ import annotations
 
@@ -51,24 +55,11 @@ from repro_torch.kernels.decode_attention.quant import (KV_DTYPES,
                                                         quantize_kv)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (AxSpec, LayerSpec, ModelConfig,
                                        RunConfig, apply_norm, norm_spec,
                                        softcap)
-
-_QUEUE = "ROADMAP.md Queue 1 #5, remaining model families"
-
-
-def _check_ported(cfg: ModelConfig, spec: LayerSpec):
-    if not spec.mixer.startswith("attn"):
-        raise NotImplementedError(
-            f"{cfg.name}: mixer {spec.mixer!r} is not ported yet ({_QUEUE})")
-    if spec.mlp not in ("dense", "none"):
-        raise NotImplementedError(
-            f"{cfg.name}: mlp {spec.mlp!r} is not ported yet ({_QUEUE})")
-    if cfg.sandwich_norms:
-        raise NotImplementedError(
-            f"{cfg.name}: sandwich norms are not ported yet ({_QUEUE})")
-
 
 # ---------------------------------------------------------------------------
 # Param specs
@@ -76,11 +67,25 @@ def _check_ported(cfg: ModelConfig, spec: LayerSpec):
 
 
 def _position_specs(cfg: ModelConfig, spec: LayerSpec):
-    _check_ported(cfg, spec)
-    p: dict = {"norm1": norm_spec(cfg), "attn": attn_lib.attn_specs(cfg)}
+    p: dict = {"norm1": norm_spec(cfg)}
+    if spec.mixer.startswith("attn"):
+        p["attn"] = attn_lib.attn_specs(cfg)
+    elif spec.mixer == "ssm":
+        p["ssm"] = ssm_lib.ssm_specs(cfg, cfg.ssm)
+    else:
+        raise ValueError(spec.mixer)
+    if cfg.sandwich_norms:
+        p["post_norm1"] = norm_spec(cfg)
     if spec.mlp == "dense":
         p["norm2"] = norm_spec(cfg)
         p["mlp"] = mlp_lib.mlp_specs(cfg)
+    elif spec.mlp == "moe":
+        p["norm2"] = norm_spec(cfg)
+        p["moe"] = moe_lib.moe_specs(cfg, cfg.moe)
+    elif spec.mlp != "none":
+        raise ValueError(spec.mlp)
+    if cfg.sandwich_norms and spec.mlp != "none":
+        p["post_norm2"] = norm_spec(cfg)
     return p
 
 
@@ -110,26 +115,51 @@ def lm_specs(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def _mlp_residual(cfg: ModelConfig, spec: LayerSpec, p, x):
-    if spec.mlp != "none":
-        h = apply_norm(cfg, p["norm2"], x)
-        x = x + mlp_lib.mlp_apply(cfg, p["mlp"], h)
-    return x
+def _post_norm(cfg: ModelConfig, p, name: str, h):
+    """gemma2's sandwich norm on a sublayer's output, else ``h``."""
+    return apply_norm(cfg, p[name], h) if cfg.sandwich_norms else h
+
+
+def _mixer_residual(cfg: ModelConfig, p, x, h):
+    return x + _post_norm(cfg, p, "post_norm1", h)
+
+
+def _mlp_residual(cfg: ModelConfig, run: RunConfig, spec: LayerSpec, p, x):
+    """The MLP half of a block with its residual. Returns (x, the MoE
+    load-balancing loss of this layer, 0 for a dense MLP)."""
+    if spec.mlp == "none":
+        return x, 0.0
+    h = apply_norm(cfg, p["norm2"], x)
+    if spec.mlp == "moe":
+        h, aux = moe_lib.moe_apply(cfg, cfg.moe, p["moe"], h,
+                                   impl=run.moe_impl)
+        lb = aux["lb_loss"]
+    else:
+        h, lb = mlp_lib.mlp_apply(cfg, p["mlp"], h), 0.0
+    return x + _post_norm(cfg, p, "post_norm2", h), lb
 
 
 def _apply_block_position(cfg: ModelConfig, run: RunConfig, spec: LayerSpec,
                           p, x, positions, prefill: bool = False):
     """One pattern position (mixer + mlp with residuals); full-seq path.
-    ``prefill`` masks causally, as the reference's prefill does for every
-    model, and also hands back the attention's (k, v) for a cache."""
+    Returns (x, the layer's MoE load-balancing loss, its decode-cache
+    leaves or None). ``prefill`` masks causally, as the reference's prefill
+    does for every model, and hands back the attention's unpadded (k, v)
+    or the SSM's state leaves."""
     h = apply_norm(cfg, p["norm1"], x)
-    h, kv = attn_lib.attn_forward(
-        cfg, p["attn"], h, mixer=spec.mixer, positions=positions,
-        impl=run.attn_impl,
-        mask_kind="bidir" if cfg.bidirectional and not prefill else "causal",
-        return_kv=True)
-    x = _mlp_residual(cfg, spec, p, x + h)
-    return (x, kv) if prefill else x
+    if spec.mixer.startswith("attn"):
+        h = attn_lib.attn_forward(
+            cfg, p["attn"], h, mixer=spec.mixer, positions=positions,
+            impl=run.attn_impl,
+            mask_kind="bidir" if cfg.bidirectional and not prefill
+            else "causal",
+            return_kv=prefill)
+    else:
+        h = ssm_lib.ssm_forward(cfg, cfg.ssm, p["ssm"], h,
+                                return_state=prefill)
+    h, layer_cache = h if prefill else (h, None)
+    x, lb = _mlp_residual(cfg, run, spec, p, _mixer_residual(cfg, p, x, h))
+    return x, lb, layer_cache
 
 
 # matmuls without batch dims: what "dots" remat keeps for the backward
@@ -192,21 +222,24 @@ def _lm_head(cfg: ModelConfig, params, x):
 
 def forward(cfg: ModelConfig, run: RunConfig, params, *, tokens=None,
             embeddings=None):
-    """Full-sequence logits. Returns (logits_fp32, aux_loss)."""
+    """Full-sequence logits. Returns (logits_fp32, aux_loss): the MoE
+    layers' load-balancing losses summed and divided by the layer count,
+    as the reference's scan does (0 without MoE layers)."""
     ref = tokens if tokens is not None else embeddings
     if cfg.pos == "learned" and ref.shape[1] > cfg.max_position:
         raise ValueError(f"{cfg.name}: sequence of {ref.shape[1]} exceeds "
                          f"the {cfg.max_position} learned positions")
     positions = torch.arange(ref.shape[1], device=ref.device)[None, :]
     x = _embed_in(cfg, params, tokens, embeddings, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, p in enumerate(params["blocks"]):
         spec = cfg.pattern[layer % cfg.period]
         block = _maybe_remat(
             lambda x, p, spec=spec: _apply_block_position(
-                cfg, run, spec, p, x, positions), run)
-        x = block(x, p)
-    # no MoE layers are ported, so the load-balancing aux loss is zero
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+                cfg, run, spec, p, x, positions)[:2], run)
+        x, lb = block(x, p)
+        aux = aux + lb
+    aux = aux / max(cfg.n_layers, 1)
     x = apply_norm(cfg, params["final_norm"], x)
     if cfg.num_labels:  # encoder classifier: pool at [CLS] position 0
         return _lm_head(cfg, params, x[:, 0]), aux
@@ -220,13 +253,14 @@ def forward(cfg: ModelConfig, run: RunConfig, params, *, tokens=None,
 
 @dataclasses.dataclass
 class Cache:
-    """Decode cache: per-layer KV tensors + per-row lengths.
+    """Decode cache: per-layer KV or SSM-state tensors + per-row lengths.
 
     ``lengths`` is (B,) int32: each batch row tracks its own number of
     valid tokens, so one shared batched cache holds requests at different
     decode depths (ragged continuous batching). A free row is a row whose
     length the serving layer reset to 0; the per-row masks make it inert
-    until the next admission overwrites the row.
+    until the next admission overwrites the row (an SSM layer's state
+    rows are overwritten whole by the admission's prefill).
 
     ``seq_shards`` is the number of blocks the sequence dim is cut into
     over the mesh's "model" axis: with M > 1 the KV leaves hold this
@@ -234,14 +268,22 @@ class Cache:
     capacity) and ``lengths`` stay global.
     """
 
-    layers: tuple  # per layer: {"k": (B,T,KV,hd), "v": (B,T,KV,hd)}
+    layers: tuple  # per layer: {"k", "v"[, scales]} or the SSM leaves
     lengths: torch.Tensor  # (B,) int32
     seq_shards: int = 1
 
     def tensors(self):
-        """Every tensor of the cache: k and v of each layer, then lengths."""
+        """Every tensor of the cache: each layer's leaves, then lengths."""
         return [t for layer in self.layers for t in layer.values()] + [
             self.lengths]
+
+    def kv_capacity(self) -> Optional[int]:
+        """Positions of the whole sequence dim (all ``seq_shards`` blocks)
+        of the first attention layer; None for an attention-free model."""
+        for layer in self.layers:
+            if "k" in layer:
+                return layer["k"].shape[1] * self.seq_shards
+        return None
 
 
 def _check_kv_dtype(kv_dtype: str):
@@ -269,7 +311,8 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
     """The cache's shapes and dtypes, on the meta device (allocates
     nothing): the counterpart of the reference's ShapeDtypeStruct tree.
     ``kv_dtype="int8"`` stores int8 k/v and per-token fp32
-    ``k_scale``/``v_scale`` of shape (B, max_len, KV, 1)."""
+    ``k_scale``/``v_scale`` of shape (B, max_len, KV, 1) in attention
+    layers; SSM layers are untouched."""
     return init_cache(cfg, batch, max_len, kv_dtype, device="meta",
                       seq_shards=seq_shards)
 
@@ -285,14 +328,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                kv_dtype: str = "bf16", device="cuda",
                seq_shards: int = 1) -> Cache:
     """An empty cache (zeros, all lengths 0) on ``device``; with
-    ``seq_shards`` = M > 1, one rank's block of max_len / M positions."""
+    ``seq_shards`` = M > 1, one rank's block of max_len / M positions of
+    every attention layer."""
     _check_kv_dtype(kv_dtype)
-    for spec in cfg.pattern:
-        _check_ported(cfg, spec)
     shape = (batch, _block_len(max_len, seq_shards), cfg.n_kv_heads,
              cfg.head_dim)
-    return Cache(layers=tuple(_kv_layer(shape, kv_dtype, device)
-                              for _ in range(cfg.n_layers)),
+    layers = tuple(
+        _kv_layer(shape, kv_dtype, device)
+        if cfg.pattern[layer % cfg.period].mixer.startswith("attn")
+        else ssm_lib.ssm_cache(cfg, cfg.ssm, batch, device)
+        for layer in range(cfg.n_layers))
+    return Cache(layers=layers,
                  lengths=torch.zeros(batch, dtype=torch.int32,
                                      device=device),
                  seq_shards=seq_shards)
@@ -338,7 +384,8 @@ def paged_cache_specs(cfg: ModelConfig, batch: int, n_pages: int,
     addresses up to ``max_pages`` logical pages (max_pages * page_size =
     the row's max_len). ``kv_dtype="int8"`` adds fp32 scale pools
     (n_pages, page_size, KV, 1) that page exactly like the data. Only
-    attention-only patterns page, as in the reference."""
+    attention-only patterns page, as in the reference: SSM state is O(1)
+    per row, nothing to page."""
     return init_paged_cache(cfg, batch, n_pages, page_size, max_pages,
                             kv_dtype, device="meta")
 
@@ -353,7 +400,6 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
             raise ValueError(
                 f"paged KV caches require an attention-only pattern; mixer "
                 f"{spec.mixer!r} has no paged layout (use the dense cache)")
-        _check_ported(cfg, spec)
     _check_kv_dtype(kv_dtype)
     shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     return PagedCache(
@@ -370,15 +416,31 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
 # ---------------------------------------------------------------------------
 
 
+def _kv_leaves(run: RunConfig, k, v, max_len: int, lo: int, block: int):
+    """An attention layer's cache leaves from its prompt k/v: int8 with
+    scales or bf16, zeros past the prompt, positions [lo, lo + block)."""
+    if run.kv_dtype == "int8":
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        leaves = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        leaves = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+    pad = (0, 0, 0, 0, 0, max_len - k.shape[1])
+    return {n: F.pad(t, pad)[:, lo:lo + block].contiguous()
+            for n, t in leaves.items()}
+
+
 def prefill(cfg: ModelConfig, run: RunConfig, params, *, tokens=None,
             embeddings=None, max_len: Optional[int] = None,
             seq_shards: int = 1, shard: int = 0):
     """Returns (last-token logits (B,V), populated Cache of capacity
     ``max_len``, default the prompt length + ``run.cache_pad``). With
-    ``run.kv_dtype="int8"`` the cache holds each layer's k/v quantized
-    per token (int8 values, fp32 scales). With ``seq_shards`` = M > 1 the
-    cache is block ``shard`` of M along the sequence: positions
-    [shard * max_len / M, (shard + 1) * max_len / M) of every layer."""
+    ``run.kv_dtype="int8"`` the cache holds each attention layer's k/v
+    quantized per token (int8 values, fp32 scales). With ``seq_shards`` =
+    M > 1 each attention layer keeps block ``shard`` of M along the
+    sequence: positions [shard * max_len / M, (shard + 1) * max_len / M).
+    A model with SSM layers needs a prompt of at most one SSD chunk or a
+    whole number of chunks (``ssm.check_prefill_len``)."""
     _check_kv_dtype(run.kv_dtype)
     ref = tokens if tokens is not None else embeddings
     b, s = ref.shape[0], ref.shape[1]
@@ -393,19 +455,12 @@ def prefill(cfg: ModelConfig, run: RunConfig, params, *, tokens=None,
     x = _embed_in(cfg, params, tokens, embeddings, positions)
     layers = []
     for layer, p in enumerate(params["blocks"]):
-        x, (k, v) = _apply_block_position(
-            cfg, run, cfg.pattern[layer % cfg.period], p, x, positions,
-            prefill=True)
-        pad = (0, 0, 0, 0, 0, max_len - s)  # zeros past the prompt
-        if run.kv_dtype == "int8":
-            kq, ks = quantize_kv(k)
-            vq, vs = quantize_kv(v)
-            leaves = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-        else:
-            leaves = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
-        # this block's positions, zeros past the prompt
-        layers.append({n: F.pad(t, pad)[:, lo:lo + block].contiguous()
-                       for n, t in leaves.items()})
+        spec = cfg.pattern[layer % cfg.period]
+        x, _, layer_cache = _apply_block_position(cfg, run, spec, p, x,
+                                                  positions, prefill=True)
+        if spec.mixer.startswith("attn"):
+            layer_cache = _kv_leaves(run, *layer_cache, max_len, lo, block)
+        layers.append(layer_cache)
     x_last = apply_norm(cfg, params["final_norm"], x[:, -1])
     logits = _lm_head(cfg, params, x_last)
     return logits, Cache(layers=tuple(layers),
@@ -425,17 +480,20 @@ def decode_step(cfg: ModelConfig, run: RunConfig, params, cache,
     int (or embedding (B,1,D)).
 
     Returns (logits (B,V), ``cache``) with the new k/v (and int8 scales)
-    written and every row's length advanced by 1, IN PLACE. The batch is
-    RAGGED: row b embeds, writes and attends at its own position
-    ``cache.lengths[b]``, so one call serves continuous-batching slots at
-    different depths. Free rows advance too (the reference does the
-    same). On a dense cache, once a row's length passes the cache's end
-    its write lands on the last position (``attention.write_kv_rows``)
-    and it attends every position; on a paged cache a free row's zeroed
-    table routes its write to the null page 0. The serving layer discards
-    free rows' tokens. Under ``run.attn_impl="seq_shard"`` each layer's
-    write and attention go through ``dist.collectives`` over the cache's
-    ``seq_shards`` blocks, ``lengths`` unchanged (global).
+    and SSM states written and every row's length advanced by 1, IN
+    PLACE. The batch is RAGGED: row b embeds, writes and attends at its
+    own position ``cache.lengths[b]``, so one call serves
+    continuous-batching slots at different depths. Free rows advance too
+    (the reference does the same). On a dense cache, once a row's length
+    passes the cache's end its write lands on the last position
+    (``attention.write_kv_rows``) and it attends every position; on a
+    paged cache a free row's zeroed table routes its write to the null
+    page 0. The serving layer discards free rows' tokens. Under
+    ``run.attn_impl="seq_shard"`` each attention layer's write and
+    attention go through ``dist.collectives`` over the cache's
+    ``seq_shards`` blocks, ``lengths`` unchanged (global). MoE layers
+    route every row of the call together: under a capacity-bound dispatch
+    a row's output depends on the others (``models.moe``).
     """
     _check_kv_dtype(run.kv_dtype)
     paged = isinstance(cache, PagedCache)
@@ -445,19 +503,25 @@ def decode_step(cfg: ModelConfig, run: RunConfig, params, cache,
     for layer, p in enumerate(params["blocks"]):
         spec = cfg.pattern[layer % cfg.period]
         c = cache.layers[layer]
-        scales = dict(k_scale=c.get("k_scale"), v_scale=c.get("v_scale"))
         h = apply_norm(cfg, p["norm1"], x)
-        if paged:
+        if spec.mixer == "ssm":
+            h, new = ssm_lib.ssm_decode(cfg, cfg.ssm, p["ssm"], h, c)
+            for name, t in new.items():
+                c[name].copy_(t)
+        elif paged:
             h = attn_lib.attn_decode_layer_paged(
                 cfg, p["attn"], h, c["k"], c["v"], cache.page_table,
                 lengths, mixer=spec.mixer, page_size=cache.page_size,
-                impl=run.attn_impl, **scales)[0]
+                impl=run.attn_impl, k_scale=c.get("k_scale"),
+                v_scale=c.get("v_scale"))[0]
         else:
             h = attn_lib.attn_decode_layer(
                 cfg, p["attn"], h, c["k"], c["v"], lengths,
                 mixer=spec.mixer, impl=run.attn_impl,
-                seq_shards=cache.seq_shards, **scales)[0]
-        x = _mlp_residual(cfg, spec, p, x + h)
+                seq_shards=cache.seq_shards, k_scale=c.get("k_scale"),
+                v_scale=c.get("v_scale"))[0]
+        x, _ = _mlp_residual(cfg, run, spec, p,
+                             _mixer_residual(cfg, p, x, h))
     x = apply_norm(cfg, params["final_norm"], x)
     logits = _lm_head(cfg, params, x[:, 0])
     cache.lengths.add_(1)
@@ -492,7 +556,8 @@ def extend_paged(cfg: ModelConfig, run: RunConfig, params, cache: PagedCache,
             cfg, p["attn"], h, c["k"], c["v"], table_row, start,
             mixer=spec.mixer, page_size=cache.page_size,
             k_scale=c.get("k_scale"), v_scale=c.get("v_scale"))[0]
-        x = _mlp_residual(cfg, spec, p, x + h)
+        x, _ = _mlp_residual(cfg, run, spec, p,
+                             _mixer_residual(cfg, p, x, h))
     x = apply_norm(cfg, params["final_norm"], x[:, -1])
     logits = _lm_head(cfg, params, x)
     cache.lengths[row] = start + L

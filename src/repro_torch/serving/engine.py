@@ -245,7 +245,7 @@ class Engine:
         shards = cache.seq_shards
         shard = 0
         if shards > 1:  # a rank's block of the whole capacity: prefill it
-            max_len = cache.layers[0]["k"].shape[1] * shards
+            max_len = cache.kv_capacity()
             shards, shard = self._seq_block(max_len)
 
         def _prefill_into(params, cache, batch, row, generator=None):
@@ -253,6 +253,7 @@ class Engine:
                                                max_len=max_len,
                                                seq_shards=shards,
                                                shard=shard)
+            # KV rows (the prompt's positions) and SSM state rows (whole)
             for big, sm in zip(cache.layers, small.layers):
                 for name, t in sm.items():
                     big[name][row, :t.shape[1]].copy_(t[0])
@@ -347,13 +348,15 @@ class Engine:
 
     def _row_len(self, cache: Cache, s: int, max_len: Optional[int]) -> int:
         """The prefill length of an admission: ``max_len``, default the
-        shared cache's whole capacity (axis 1 of the port's per-layer
-        (B, T, KV, hd) leaves times its sequence blocks, where the
-        reference reads axis 2 of its stacked leaves)."""
-        cap = (cache.layers[0]["k"].shape[1] * cache.seq_shards
-               if cache.layers else s + self.run.cache_pad)
-        max_len = cap if max_len is None else max_len
-        if max_len > cap:
+        shared cache's whole capacity (``Cache.kv_capacity``: axis 1 of
+        the first attention layer's (B, T, KV, hd) leaves times its
+        sequence blocks, where the reference reads axis 2 of a stacked KV
+        leaf), or the prompt + ``run.cache_pad`` in a cache with no
+        attention layer (all SSM: nothing there is sized by positions)."""
+        cap = cache.kv_capacity()
+        if max_len is None:
+            max_len = s + self.run.cache_pad if cap is None else cap
+        if cap is not None and max_len > cap:
             raise ValueError(f"max_len={max_len} exceeds the shared "
                              f"cache's capacity of {cap}")
         _check_prompt(s, max_len)

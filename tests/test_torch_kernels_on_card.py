@@ -772,3 +772,186 @@ def test_decode_row_does_not_depend_on_other_slots_on_card(cuda):
     moved_tok[3] = tok[2]
     moved = decode({0: (3, 64), 1: (1, 20), 3: (0, 64)}, moved_tok)
     assert torch.equal(alone[2], moved[3])
+
+
+# Cases with a softcap: randn q and k give scores of std 1, which a cap
+# of 30 or 50 barely moves, so there q is scaled by SHARP_Q (a power of
+# two: exact in bf16) to put the scores at std 32, past the cap. The
+# kernel is held by relative RMS over all rows and over the rows a window
+# 64 positions off would cut, and the same kernel called with each
+# planted fault (the softcap or the window dropped, the window 64
+# positions short or long) must break the bf16 bound.
+SHARP_Q = 32.0
+SHARP_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _rel_rms(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def _hold(got, want, dtype, rows, sharp):
+    if not sharp:
+        torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+        return
+    err = max(_rel_rms(got.float(), want.float()),
+              _rel_rms(got[rows].float(), want[rows].float()))
+    assert err <= SHARP_RTOL[dtype], err
+
+
+def _faults_caught(call, want, rows, window, cap):
+    """``call(window, softcap)`` runs the kernel; each planted fault must
+    land farther than the bf16 bound from ``want``."""
+    faults = [(window, None)]
+    if window is not None:
+        faults += [(None, cap), (window + 64, cap)]
+        faults += [(window - 64, cap)] if window > 64 else []
+    for w, c in faults:
+        out = call(w, c).float()
+        err = max(_rel_rms(out, want.float()),
+                  _rel_rms(out[rows], want[rows].float()))
+        assert err > SHARP_RTOL[torch.bfloat16], (w, c, err)
+
+
+# The remaining model families' shapes: nemotron-4-340b's head_dim 192
+# (GQA 12), gemma2-27b's window 4096 with softcap 50 (GQA 2, D 128),
+# whisper-base's cross-attention of one decoder row over its 1 500
+# encoder frames (bidirectional, T no multiple of the 64-key tile):
+# (b, s, t, h, kv, d, causal, window, cap)
+FAMILY_FLASH_CASES = [
+    (1, 300, 300, 24, 2, 192, True, None, None),     # nemotron, GQA 12
+    (2, 100, 170, 4, 4, 192, False, 64, 30.0),       # D 192, window + cap
+    (1, 4608, 4608, 4, 2, 128, True, 4096, 50.0),    # gemma2 local layer
+    (1, 1, 1500, 8, 8, 64, False, None, None),       # whisper cross, S 1
+    (4, 1, 1500, 8, 8, 64, False, None, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FAMILY_FLASH_CASES,
+                         ids=[str(c) for c in FAMILY_FLASH_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_family_flash_shapes_on_card(cuda, case, dtype):
+    """Both bodies (fp32 on the CUDA cores, bf16 on wgmma) at the new
+    families' shapes against the plain version; with a softcap, at scores
+    past it, and blind to no planted fault."""
+    b, s, t, h, kv, d, causal, window, cap = case
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda, dtype=dtype)
+               for shape in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d)))
+    sharp = cap is not None
+    if sharp:
+        q = q * SHARP_Q
+    rows = (slice(None), slice(max((window or 64) - 64, 0), None))
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=cap)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                               softcap=cap)
+    assert got.shape == q.shape and got.dtype == q.dtype
+    _hold(got, want, dtype, rows, sharp)
+    if sharp:
+        _faults_caught(lambda w, c: fa_ops.flash_attention(
+            q, k, v, causal=causal, window=w, softcap=c), want, rows,
+            window, cap)
+
+
+# decode at D 192 (nemotron, GQA 12) and gemma2's local layers (window
+# 4096 and softcap 50 over a 5 120-position cache, rows inside and past
+# the window): (b, h, kv, d, t, lengths, window, cap)
+FAMILY_DECODE_CASES = [
+    (4, 96, 8, 192, 512, (0, 511, 512, 300), None, None),
+    (3, 24, 2, 192, 300, (10, 299, 150), 64, 30.0),
+    (4, 32, 16, 128, 5120, (4000, 4096, 5119, 300), 4096, 50.0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FAMILY_DECODE_CASES,
+                         ids=[str(c[:5]) for c in FAMILY_DECODE_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_family_decode_shapes_on_card(cuda, case, dtype):
+    """The dense entry at the new shapes, and the int8, paged and partials
+    entries (one template) at D 192, against their plain versions; with a
+    softcap, at scores past it, the dense entry blind to no planted
+    fault."""
+    b, h, kv, d, t, lengths, window, cap = case
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(b, h, d, generator=g, device=cuda, dtype=dtype)
+    k, v = (torch.randn(b, t, kv, d, generator=g, device=cuda, dtype=dtype)
+            for _ in range(2))
+    sharp = cap is not None
+    if sharp:
+        q = q * SHARP_Q
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    rows = lens >= (window or 64) - 64
+    before = da_ops.launches
+    got = da_ops.decode_attention(q, k, v, lens, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert da_ops.launches == before + 1
+    want = decode_attention_ref(q, k, v, lens, window=window, softcap=cap)
+    _hold(got, want, dtype, rows, sharp)
+    if sharp:
+        _faults_caught(lambda w, c: da_ops.decode_attention(
+            q, k, v, lens, window=w, softcap=c), want, rows, window, cap)
+    if d != 192:
+        return
+    kq, ks = quantize_kv(k.float())
+    vq, vs = quantize_kv(v.float())
+    got = da_ops.decode_attention(q, kq, vq, lens, k_scale=ks, v_scale=vs,
+                                  window=window, softcap=cap)
+    want = decode_attention_quant_ref(q, kq, vq, ks, vs, lens,
+                                      window=window, softcap=cap)
+    _hold(got, want, dtype, rows, sharp)
+    ps = 16
+    pmax = t // ps if t % ps == 0 else t // ps + 1
+    pool_k = torch.zeros(1 + b * pmax, ps, kv, d, device=cuda, dtype=dtype)
+    pool_v = torch.zeros_like(pool_k)
+    table = (torch.randperm(b * pmax, generator=g, device=cuda) + 1
+             ).reshape(b, pmax).to(torch.int32)
+    for row in range(b):
+        for i in range(pmax):
+            n = min(ps, t - i * ps)
+            pool_k[table[row, i], :n] = k[row, i * ps:i * ps + n]
+            pool_v[table[row, i], :n] = v[row, i * ps:i * ps + n]
+    got = da_ops.paged_decode_attention(q, pool_k, pool_v, lens, table,
+                                        window=window, softcap=cap)
+    want = paged_decode_attention_ref(q, pool_k, pool_v, lens, table,
+                                      window=window, softcap=cap)
+    _hold(got, want, dtype, rows, sharp)
+    got = da_ops.decode_attention_partials(q, k, v, lens, offset=0,
+                                           window=window, softcap=cap)
+    want = decode_attention_partials_ref(q, k, v, lens, offset=0,
+                                         window=window, softcap=cap)
+    for x, y in zip(got, want):
+        assert (x - y).abs().max().item() <= 1e-4 * max(
+            1.0, y.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_sampling_kernel_logits_staging_at_vocab_256000_on_card(cuda):
+    """gemma2's, command-r's and nemotron's vocabulary: at B = 4 the
+    kernel stages only the logits of its slice ("logits" staging), as on
+    gemma2's serving path; with top-k the tokens equal the plain
+    epilogue's on the same noise."""
+    b, v = 4, 256_000
+    n = fs.choose_sample_split(b, v, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert fs.staging(v, n) == "logits"
+    g = torch.Generator(device=cuda).manual_seed(8)
+    logits = torch.randn(b, v, generator=g, device=cuda) * 3
+    noise = fs.gumbel_noise(logits.shape, g, cuda)
+    cutoff = torch.zeros(b, 1, device=cuda)
+    before = fs.launches
+    got = fs.fused_sample_kernel(logits, noise, cutoff, temperature=0.8,
+                                 top_k=50)
+    torch.cuda.synchronize()
+    assert fs.launches == before + 1
+    want = fs.fused_sample_ref(logits, noise, cutoff, temperature=0.8,
+                               top_k=50)
+    torch.testing.assert_close(got, want)

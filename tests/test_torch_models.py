@@ -266,10 +266,3 @@ def test_bridge_keeps_declared_dtypes(distilbert_ref):
     np.testing.assert_array_equal(
         params["blocks"][1]["mlp"]["w1"].float().numpy(),
         params_np["blocks"][0]["mlp"]["w1"][1])
-
-
-@pytest.mark.parametrize("arch", ["mamba2-130m", "qwen2-moe-a2.7b",
-                                  "gemma2-27b", "whisper-base"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        build(configs.smoke(arch))
