@@ -40,7 +40,7 @@ points and checks what comes out:
        when sampled, nothing else), then
        on tamed q/k against the dense kernel path, and a decode round;
   (h)  the same mesh path on ranks that share the card (spawned
-       processes, gloo): two ranks at full width, four at the job's depth;
+       processes, gloo): two ranks at full width, four at 2 layers;
        streams bit-identical on every rank, decode round and all_reduce
        time.
   (i)  the paper's Fig. 2: ``benchmarks.fig2.measure_real_per_item`` on
@@ -80,7 +80,16 @@ points and checks what comes out:
        alone; (q4) ``nemotron-4-340b`` (head_dim 192) and (q5)
        ``grok-1-314b`` at full width and 2 layers; (q6) the jamba hybrid
        at smoke width; (q7) ``whisper-base``: 1 500 encoder frames, then
-       decode steps whose cross-attention runs flash at S 1.
+       decode steps whose cross-attention runs flash at S 1;
+  (r)  tensor-parallel params and a data axis on ranks sharing the card
+       (spawned processes, gloo), tamed q/k, each layout held to the
+       one-rank engine on the same params and requests: (r1)
+       ``launch.serve --mesh 2x2 --full-width`` on ``distilbert-imdb`` in
+       its offline mode; (r2) ``qwen2-7b``, all 28 layers, 8 requests
+       through ``ContinuousBatcher`` on (1, 2), (1, 4), (2, 1), (2, 2) and
+       (2, 2) seq-sharded, sampled on (2, 1) and (1, 2); (r3)
+       ``qwen2-moe-a2.7b`` at 6 of its 24 layers, its scatter dispatch
+       grouped per data shard on (2, 1) and its experts split on (1, 2).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Any failed phase raises, so the script exits non-zero and
@@ -89,9 +98,9 @@ prints no result line; so does a machine with no CUDA device.
 Usage (on a machine with one NVIDIA H100 and the CUDA toolkit):
   python3 chip_smoke.py
 
-(``chip_smoke.py --rank-worker SPEC`` is one rank of phase (h), and
-``chip_smoke.py --pod-worker SPEC`` one of phase (p), started by the script
-itself.)
+(``chip_smoke.py --rank-worker SPEC`` is one rank of phase (h),
+``chip_smoke.py --pod-worker SPEC`` one of phase (p) and ``chip_smoke.py
+--tp-worker SPEC`` one of phase (r), started by the script itself.)
 
 Output: the card's ``name, power.limit`` line, the build time, one line per
 kernel check and per phase (with its seconds), a ``{"kernels": [...]}``
@@ -102,6 +111,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
 import math
@@ -160,7 +170,8 @@ from repro_torch.obs import lint_prometheus  # noqa: E402
 from repro_torch.router import (  # noqa: E402
     TRAFFIC, CalibratedLatencyModel, EventRouter,
     QueueDepthPolicy, ReplicaConfig, ReplicaPool, make_requests)
-from repro_torch.serving import Engine, PageAllocator, Request  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    ContinuousBatcher, Engine, PageAllocator, Request)
 from repro_torch.tools import trace_report  # noqa: E402
 from repro_torch.training import checkpoint as train_checkpoint  # noqa: E402
 from repro_torch.training import optimizer, train_step  # noqa: E402
@@ -243,6 +254,23 @@ CASES = [
      torch.bfloat16),
     ("whisper_cross_s1", 1, 1, 1500, 8, 8, 64, False, None, None,
      torch.bfloat16),
+    # phase (r)'s local heads: qwen2-7b's admissions (64-256 tokens) on a
+    # "model" axis of 2 (14 q over 2 kv heads) and of 4 (a GQA group of 7
+    # over one kv head), qwen2-moe's (8, 256) prefill on 2 (8 of 16 heads),
+    # and distilbert-imdb's batches of 32 classified on 6 of its 12 heads,
+    # whole or as one data shard's 16 rows
+    ("tp_qwen2_prefill_14_2", 1, 256, 256, 14, 2, 128, True, None, None,
+     torch.bfloat16),
+    ("tp_qwen2_prefill_7_1", 1, 256, 256, 7, 1, 128, True, None, None,
+     torch.bfloat16),
+    ("tp_qwen2_prefill_7_1_s64", 1, 64, 64, 7, 1, 128, True, None, None,
+     torch.bfloat16),
+    ("tp_moe_prefill_8_8", 8, 256, 256, 8, 8, 128, True, None, None,
+     torch.bfloat16),
+    ("tp_distilbert_bidir_6_6", 32, 128, 128, 6, 6, 64, False, None, None,
+     torch.bfloat16),
+    ("tp_distilbert_bidir_6_6_b16", 16, 128, 128, 6, 6, 64, False, None,
+     None, torch.bfloat16),
 ]
 # the flash cases that are timed: the offline main path, one qwen2-7b
 # prefill admission and phase (q)'s three shapes
@@ -257,6 +285,8 @@ TIMED_FLASH = ("main_path_bidir", "qwen2_prefill_gqa7",
 # every row sees at least one position.
 _PATH_LENGTHS = tuple(int(x) for x in
                       np.random.default_rng(0).integers(64, 577, 8))
+_R_LENGTHS = tuple(int(x) for x in
+                   np.random.default_rng(1).integers(64, 273, 8))
 DECODE_CASES = [
     ("main_path", 8, 28, 4, 128, 1024, _PATH_LENGTHS, None, None,
      torch.bfloat16),
@@ -281,6 +311,20 @@ DECODE_CASES = [
     ("gemma2_window_softcap", 4, 32, 16, 128, 5120, (4700, 4096, 5119, 300),
      4096, 50.0, torch.bfloat16),
     ("nemotron_d192", 4, 96, 8, 192, 1024, _PATH_LENGTHS[:4], None, None,
+     torch.bfloat16),
+    # phase (r)'s rounds on the 512-position cache (64-256-token prompts,
+    # 16 new): 8 rows at 14/2 and 7/1 local heads ("model" of 2 and 4),
+    # one data shard's 4 rows at 28/4 and 14/2 ((2, 1), (2, 2)), and
+    # qwen2-moe's 16 heads split over 2 and its 4 rows of a data shard
+    ("tp_14_2", 8, 14, 2, 128, 512, _R_LENGTHS, None, None, torch.bfloat16),
+    ("tp_7_1", 8, 7, 1, 128, 512, _R_LENGTHS, None, None, torch.bfloat16),
+    ("dp_rows4", 4, 28, 4, 128, 512, _R_LENGTHS[:4], None, None,
+     torch.bfloat16),
+    ("dp_rows4_tp_14_2", 4, 14, 2, 128, 512, _R_LENGTHS[4:], None, None,
+     torch.bfloat16),
+    ("tp_moe_8_8", 8, 8, 8, 128, 512, _R_LENGTHS, None, None,
+     torch.bfloat16),
+    ("dp_rows4_moe", 4, 16, 16, 128, 512, _R_LENGTHS[:4], None, None,
      torch.bfloat16),
 ]
 # decode cases timed beside the serving path's shape (the first case)
@@ -315,6 +359,8 @@ SAMPLE_CASES = [
     # phase (q)'s gemma2-27b sampled round: 4 slots of a 256 000 vocabulary,
     # which stages only the logits
     ("gemma2_round_b4_v256000", 4, 256000, PATH_SAMPLING, None, "randn"),
+    # phase (r)'s sampled rounds on one data shard's 4 rows
+    ("dp_rows4", 4, VOCAB, PATH_SAMPLING, None, "randn"),
     ("device_memory", 2, 1_000_000, PATH_SAMPLING, None, "randn"),
     ("top_k_1", 8, VOCAB, dict(temperature=0.8, top_k=1), None, "randn"),
     ("top_k_v", 2, VOCAB, dict(temperature=0.8, top_k=VOCAB), None,
@@ -2629,11 +2675,14 @@ def run_paged_int8(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 # (name, ranks, layers, requests): two ranks at full width on the card
-# sizes, then four at the job's depth on fewer requests (the only run
-# where one row spans more than two shards)
+# sizes, then four at RANK4_LAYERS layers on fewer requests (the only run
+# where one row spans more than two shards). RANK4_LAYERS was the job's 4
+# until phase (r) took the script past 85% of its time limit (1 031 s on
+# an H100 with 4): the one depth cut the script allows itself.
+RANK4_LAYERS = 2
 RANK_RUNS = [("seq_shard_qwen2_7b_2_ranks", 2, None, GEN.n_requests),
-             ("seq_shard_qwen2_7b_4_layers_4_ranks", 4,
-              serve_cluster.JOB_LAYERS, 8)]
+             (f"seq_shard_qwen2_7b_{RANK4_LAYERS}_layers_4_ranks", 4,
+              RANK4_LAYERS, 8)]
 RANK_TIMEOUT_S = 600
 
 
@@ -2890,8 +2939,10 @@ ROUTER = dict(traffic="bursty", rate=12.0, horizon=4.0, prompt_len=64,
 ROUTER_CRASH_PROB = 0.1
 # (k): decode rounds at 1-8 slots, each the mean of CAL_STEPS calls, and
 # prefills of 64 and 128 tokens, the fastest of CAL_REPEATS samples a
-# shape; the fit must explain them to within CAL_RMSE_FRAC of its overhead
-CAL_SLOTS, CAL_STEPS, CAL_REPEATS, CAL_RMSE_FRAC = (1, 2, 4, 8), 64, 5, 0.2
+# shape; the fit must explain them to within CAL_RMSE_FRAC of its overhead.
+# CAL_STEPS was 64 until phase (r) took the script to 1 200 s of its
+# 1 200 s limit on a slow host (the samples took most of (k)'s 107 s)
+CAL_SLOTS, CAL_STEPS, CAL_REPEATS, CAL_RMSE_FRAC = (1, 2, 4, 8), 16, 5, 0.2
 HTTP_CLIENTS = 24              # (l): three replicas' slots
 HTTP_TIMEOUT_S = 300.0
 # (m): the command line at main()'s smoke config: clients of --http, and
@@ -4622,12 +4673,738 @@ def control_plane_phases(phase) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase (r): tensor-parallel params and a data axis, ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# The configs phase (r) serves (``configs.get``: full width; a CPU
+# rehearsal points it at ``configs.smoke``) and its device.
+R_CONFIG = configs.get
+# r2: qwen2-7b, all 28 layers, 8 requests of 64-256 tokens, 16 new each,
+# over 8 slots of 512 positions; each mesh (shape, seq_shard) in turn, the
+# sampled pass on the first two data/model layouts
+R_GEN = dict(n_requests=8, prompt_len=(64, 257), new_tokens=(16, 17),
+             n_slots=8, max_len=512)
+R_QWEN = [((1, 2), False), ((1, 4), False), ((2, 1), False),
+          ((2, 2), False), ((2, 2), True)]
+R_SAMPLED = [(2, 1), (1, 2)]
+# sampled streams that may part from the one-rank run's, each at a near-tie:
+# three quarters of them in all (a stream makes 16 Gumbel-max draws, and
+# the gap between a draw's two best scores is near 0 often enough that
+# logits 0.04 apart flip one of 16 in most streams), and a quarter past
+# the draw-gap bound (at the edge of the top-k or top-p filter, where
+# every logit moves the cutoff)
+R_SAMPLED_PARTS = 3 * R_GEN["n_requests"] // 4
+R_EDGE_PARTS = R_GEN["n_requests"] // 4
+# r3: qwen2-moe-a2.7b at full width, MOE_LAYERS of its 24 layers (cut for
+# the run's time: 8.3 GB of params a whole copy), an (8, 256) prefill
+# through the scatter dispatch, and continuous batching
+MOE_LAYERS = 6
+R_MOE = [(2, 1), (1, 2)]
+R_MOE_PREFILL = (8, 256)
+# r1: distilbert-imdb through ``launch.serve --mesh 2x2 --full-width``
+R_CLF_ARGV = ["--mesh", "2x2", "--full-width", "--arch", "distilbert-imdb",
+              "--n-items", "256", "--seq-len", "128", "--batch-size", "32",
+              "--seed", str(SEED)]
+R_TIMEOUT_S = 900
+# teacher-forced decode rounds after the admissions, on the one-rank greedy
+# tokens: the logits' difference there sets the near-tie bound
+R_FORCED = 8
+
+
+def r_requests(cfg):
+    return serve_cluster.make_requests(
+        cfg.vocab_size, R_GEN["n_requests"], R_GEN["prompt_len"],
+        R_GEN["new_tokens"], SEED)
+
+
+def r_serve(engine, params, cfg, **kw) -> dict:
+    """r2's continuous batching with the launch counts around it."""
+    reqs = r_requests(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    res = serve_cluster.serve(engine, params, reqs,
+                              n_slots=R_GEN["n_slots"],
+                              max_len=R_GEN["max_len"], seed=SEED, **kw)
+    torch.cuda.synchronize()
+    b = res["batcher"]
+    if b.take_rejected() or len(res["completed"]) != len(reqs):
+        raise AssertionError("r2: requests rejected or left undone")
+    return {"streams": [r.generated for r in reqs], "counts": read_counts(),
+            "rounds": b.rounds, "wall_s": res["wall_s"],
+            "tokens": res["tokens"]}
+
+
+def moe_config(no_drops: bool):
+    """qwen2-moe at MOE_LAYERS layers; ``no_drops`` sets the capacity
+    factor that gives every expert room for every token (E / k)."""
+    cfg = dataclasses.replace(R_CONFIG("qwen2-moe-a2.7b"),
+                              n_layers=MOE_LAYERS)
+    if no_drops:
+        mc = cfg.moe
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            mc, capacity_factor=mc.num_experts / mc.top_k))
+    return cfg
+
+
+def r_init(model, dev, shardings=None):
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev,
+                        shardings=shardings)
+    tame_attention(model.cfg, params)
+    return params
+
+
+def planned_bytes(model, engine) -> int:
+    """Param bytes of this rank's shard as the planner cuts them."""
+    specs = dict(tree_leaves_with_path(model.param_specs,
+                                       lambda x: hasattr(x, "axes")))
+    return sum(int(np.prod(cut.local_shape(specs[path].shape)))
+               * specs[path].dtype.itemsize
+               for path, cut in tree_leaves_with_path(engine.params_sharding))
+
+
+def want_collectives(cfg, shape, seq: bool) -> dict:
+    """Collective calls of one decode round on one rank of a (D, M) mesh:
+    "model" under "tp": the all_reduce after wo and w2 in every layer and
+    after the vocab-split embedding lookup, the gather of the vocab-split
+    logits; seq-shard: the MAX and SUM merge of every layer; data: the
+    gather of the round's logits; and a MoE layer's router gather
+    (experts cut over "model") and its tokens' gather (rows cut over the
+    data axes: a decode round dispatches by "einsum")."""
+    d, m = shape
+    moe = sum(cfg.pattern[i % cfg.period].mlp == "moe"
+              for i in range(cfg.n_layers))
+    want = {}
+    if m > 1 and seq:
+        want["all_reduce"] = 2 * cfg.n_layers
+    elif m > 1:
+        split = cfg.vocab_size % m == 0
+        want["all_reduce"] = 2 * cfg.n_layers + split
+        # an expert-split router's logits are gathered in every MoE layer
+        gathers = split + (moe if cfg.moe and cfg.moe.num_experts % m == 0
+                           else 0)
+        if gathers:
+            want["all_gather_model"] = gathers
+    if d > 1:  # a round's MoE dispatch ("einsum") spans every row
+        want["all_gather_data"] = 1 + moe
+    return want
+
+
+def tp_lm_job(dev, job, rank) -> dict:
+    """One r2/r3 layout on this rank: params drawn as this rank's shard
+    (tamed q/k), admission logits, one decode round's launches and
+    collectives (counted, then timed), greedy (and sampled) serving."""
+    shape, seq = tuple(job["shape"]), job.get("seq", False)
+    if job["arch"] == "qwen2-7b":
+        cfg = R_CONFIG("qwen2-7b")
+    else:
+        cfg = moe_config(job.get("no_drops", False))
+    model = build_model(cfg)
+    mesh = make_host_mesh(shape)
+    run = serve_cluster.RUN
+    engine = Engine(model, run, device=dev, mesh=mesh, seq_shard=seq)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    # one rank draws at a time: a draw holds one whole leaf (qwen2-7b's
+    # embed in fp32, 2.2 GB) beside the rank's shard, and four whole
+    # seq-shard copies (15.23 GB each) leave no room for four such peaks
+    for r in range(int(np.prod(shape))):
+        if r == rank:
+            params = r_init(model, dev, engine.params_sharding)
+            torch.cuda.synchronize()
+        torch.distributed.barrier()
+    out = {"shape": shape, "seq": seq, "strategy": engine.strategy,
+           "layers": cfg.n_layers,
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(params)),
+           "planned_bytes": planned_bytes(model, engine),
+           "memory_allocated": torch.cuda.memory_allocated(dev) - mem0,
+           "whole_bytes": sum(int(np.prod(s.shape)) * s.dtype.itemsize
+                              for s in tree_leaves(
+                                  model.param_specs,
+                                  lambda x: hasattr(x, "axes")))}
+    if "prefill" in job:  # r3's dispatch check on one batch
+        toks = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, job["prefill"]).astype(np.int32)
+        scatter = Engine(model, dataclasses.replace(run, moe_impl="scatter"),
+                         device=dev, mesh=mesh)
+        out["prefill_logits"] = scatter.prefill(params, toks)[0].cpu()
+    # admission logits and one decode round on a fresh cache
+    reqs = r_requests(cfg)
+    cache = engine.new_cache(R_GEN["n_slots"], R_GEN["max_len"])
+    heads = []
+    flash = fa_ops.flash_attention
+
+    def spy(q, *a, **kw):
+        heads.append((int(q.shape[2]), int(a[0].shape[2])))
+        return flash(q, *a, **kw)
+
+    fa_ops.flash_attention = spy
+    try:
+        logits = [engine.prefill_into(params, cache, row, r.prompt[None])[0]
+                  for row, r in enumerate(reqs[:R_GEN["n_slots"]])]
+    finally:
+        fa_ops.flash_attention = flash
+    out["admission_logits"] = torch.cat(logits).cpu()
+    out["flash_heads"] = sorted(set(heads))
+    out["cache_block"] = list(cache.layers[0]["k"].shape)
+    # teacher-forced rounds on the one-rank greedy tokens; the first one's
+    # launches and collectives counted
+    forced = []
+    for j, toks in enumerate(job["forced"]):
+        tok = torch.tensor(toks, device=dev, dtype=torch.int32)[:, None]
+        if j == 0:
+            torch.cuda.synchronize()
+            reset_counts()
+            collectives.reset_stats()
+        forced.append(engine.decode(params, cache, tok)[0].cpu())
+        if j == 0:
+            torch.cuda.synchronize()
+            out["round_launches"] = read_counts()
+            out["round_collectives"] = {k: v[0] for k, v in
+                                        collectives.STATS.items()}
+    out["forced_logits"] = torch.stack(forced)
+    out["round_ms"] = cuda_ms(lambda: engine.decode(params, cache, tok),
+                              iters=3, warmup=1)
+    collectives.reset_stats()
+    collectives.set_timing(True)
+    n = 3
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            engine.decode(params, cache, tok)
+        torch.cuda.synchronize()
+        out["timed_round_ms"] = 1e3 * (time.perf_counter() - t0) / n
+    finally:
+        collectives.set_timing(False)
+    out["collective_ms_per_round"] = {k: 1e3 * v[1] / n for k, v in
+                                      collectives.STATS.items()}
+    del cache
+    out["greedy"] = r_serve(engine, params, cfg)
+    if job.get("sampled"):
+        kw = dict(fused_sampling=True, **serve_cluster.SAMPLING)
+        if shape[0] == 1:  # every rank samples the whole batch's rows:
+            # keep its draw where a stream parts from the one-rank run's
+            from repro_torch.serving import engine as engine_mod
+            with _Draws(engine_mod) as m:
+                out["sampled"] = r_serve(engine, params, cfg, **kw)
+            out["sampled"]["draws"] = {
+                (rid, i): m.draw[(rid, i)]
+                for rid, (a, b) in enumerate(zip(job["sampled"],
+                                                 out["sampled"]["streams"]))
+                for i in [next((j for j, (x, y) in enumerate(zip(a, b))
+                                if x != y), None)] if i is not None}
+        else:
+            out["sampled"] = r_serve(engine, params, cfg, **kw)
+    del params, engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_clf_job(dev, job, rank) -> dict:
+    """r1 on this rank: ``launch.serve.main`` with ``--mesh 2x2`` as a
+    user runs it (this process is one of its ranks), the init tamed, the
+    classify calls, flash launches and their heads counted; then the same
+    params' logits on the same mesh."""
+    from repro_torch.models import model_zoo
+    init = model_zoo.Model.init
+    classify = Engine.classify_logits
+    flash = fa_ops.flash_attention
+    calls, heads = [], set()
+
+    def tamed(self, *a, **kw):
+        params = init(self, *a, **kw)
+        tame_attention(self.cfg, params)
+        return params
+
+    def counted(self, *a, **kw):
+        calls.append(1)
+        return classify(self, *a, **kw)
+
+    def spy(q, *a, **kw):
+        heads.add((int(q.shape[2]), int(a[0].shape[2])))
+        return flash(q, *a, **kw)
+
+    model_zoo.Model.init, Engine.classify_logits = tamed, counted
+    fa_ops.flash_attention = spy
+    torch.cuda.synchronize()
+    reset_counts()
+    collectives.reset_stats()
+    t0 = time.perf_counter()
+    try:
+        out = serve.main(job["argv"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        stats = {k: v[0] for k, v in collectives.STATS.items()}
+        cfg = R_CONFIG("distilbert-imdb")
+        model = build_model(cfg)
+        engine = Engine(model, RunConfig(attn_impl="pallas"), device=dev,
+                        mesh=make_host_mesh((2, 2)))
+        params = model.init(torch.Generator().manual_seed(SEED), dev,
+                            shardings=engine.params_sharding)
+    finally:
+        model_zoo.Model.init, Engine.classify_logits = init, classify
+        fa_ops.flash_attention = flash
+    tokens = clf_tokens(cfg)
+    bs = int(job["argv"][job["argv"].index("--batch-size") + 1])
+    logits = np.concatenate([engine.classify_logits(params, tokens[i:i + bs])
+                             for i in range(0, len(tokens), bs)])
+    return {"predictions": list(out["predictions"]),
+            "accuracy": out["accuracy"], "mono": out["mono"],
+            "par": out["par"], "wall_s": wall, "classify_calls": len(calls),
+            "launches": counts, "flash_heads": sorted(heads),
+            "collectives": stats, "logits": logits,
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in tree_leaves(params)),
+            "planned_bytes": planned_bytes(model, engine)}
+
+
+def clf_tokens(cfg):
+    argv = R_CLF_ARGV
+    n = int(argv[argv.index("--n-items") + 1])
+    s = int(argv[argv.index("--seq-len") + 1])
+    return imdb_reviews(n=n, seq_len=s, vocab=cfg.vocab_size, seed=SEED)[0]
+
+
+def tp_worker(spec_path: str):
+    """One rank of phase (r), started by ``launch.mesh.spawn_ranks``: the
+    spec's jobs for this world size in turn, each result written beside
+    the spec by every rank (rank 0's is the one held; the others' streams
+    must equal it)."""
+    spec = json.loads(Path(spec_path).read_text())
+    dev = init_from_env(spec["device"])
+    rank, world = rank_env()
+    out = {}
+    for job in spec["jobs"]:
+        t0 = time.perf_counter()
+        out[job["name"]] = (tp_clf_job if job["kind"] == "clf"
+                            else tp_lm_job)(dev, job, rank)
+        out[job["name"]]["job_s"] = time.perf_counter() - t0
+    torch.save(out, Path(spec["out"], f"rank{rank}.pt"))
+
+
+def run_tp_ranks(dev, world: int, jobs: list) -> list:
+    """``jobs`` on ``world`` ranks sharing the card: each rank's results."""
+    with tempfile.TemporaryDirectory() as tmp:
+        spec_path = Path(tmp, "spec.json")
+        spec_path.write_text(json.dumps({"jobs": jobs, "out": tmp,
+                                         "device": dev.type}))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT / "src")] + [p for p in os.environ.get(
+                "PYTHONPATH", "").split(os.pathsep) if p]))
+        done = spawn_ranks([str(ROOT / "chip_smoke.py"), "--tp-worker",
+                            str(spec_path)], world,
+                           store_path=str(Path(tmp, "store")),
+                           timeout=R_TIMEOUT_S, cwd=str(ROOT), env=env)
+        failed = [f"rank {r} of {world} exited {p.returncode}:\n"
+                  f"{p.stdout[-1500:]}\n{p.stderr[-3000:]}"
+                  for r, p in enumerate(done) if p.returncode]
+        if failed:
+            raise AssertionError("(r) " + "\n".join(failed))
+        return [torch.load(Path(tmp, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+
+class _Draws:
+    """A fused-sampled run's draws, kept for judging where two sampled
+    streams part: for every committed token, its row's logits and Gumbel
+    noise (on the host). The run's batcher is set as ``batcher`` with
+    ``on_token`` as its callback, or is the one ``serve_cluster.serve``
+    makes inside the block."""
+
+    def __init__(self, engine_mod):
+        self.mod, self.fn = engine_mod, engine_mod.fused_sample
+        self.make = serve_cluster.ContinuousBatcher
+        self.pending, self.draw, self.batcher = [], {}, None
+
+    def __enter__(self):
+        def sample(logits, generator=None, *, noise=None, **kw):
+            if noise is None:
+                noise = fs.gumbel_noise(logits.shape, generator,
+                                        logits.device)
+            rows = ([0] if logits.shape[0] == 1
+                    else self.batcher.scheduler.active)
+            lg, nz = logits.float().cpu(), noise.cpu()
+            self.pending.extend((lg[r], nz[r]) for r in rows)
+            return self.fn(logits, generator, noise=noise, **kw)
+
+        def make(*a, **kw):
+            self.batcher = self.make(*a, on_token=self.on_token, **kw)
+            return self.batcher
+
+        self.mod.fused_sample = sample
+        serve_cluster.ContinuousBatcher = make
+        return self
+
+    def on_token(self, req, tok, prefill):
+        self.draw[(req.rid, len(req.generated) - 1)] = self.pending.pop(0)
+
+    def __exit__(self, *exc):
+        self.mod.fused_sample = self.fn
+        serve_cluster.ContinuousBatcher = self.make
+        self.batcher = None
+
+
+def sampled_parted_at_near_ties(dev, draws, want, got, tie, kw,
+                                mesh_draws=None) -> list:
+    """Sampled streams equal token for token, or parted only where the
+    mesh's logits, within ``tie`` of the one-rank run's, explain it (both
+    runs draw the same noise and sample through the kernel). Where the
+    mesh's own draw is known (``mesh_draws``: its ranks sample the whole
+    batch), the parting is replayed: the two draws' noise is equal, their
+    logits differ by at most ``tie``, and the kernel on each draw's
+    logits and noise gives that run's token. Else b stays in the filters
+    with its logit raised by 2 tie, and its ``logit / T + noise`` is
+    within 2 tie / T of the drawn token a's. At most R_SAMPLED_PARTS
+    streams may part, R_EDGE_PARTS of them past that draw-gap bound.
+    Returns each parting's [stream, token, draw gap
+    (one-rank logits), bound, logit difference at the draw (None
+    without the mesh's draw), a droppable by a 2-tie move]."""
+    parted = []
+    t, bound = kw["temperature"], 2 * tie / kw["temperature"]
+
+    def kept(logits):
+        return fs.apply_filters(logits[None], **kw)[0] > fs.NEG_INF / 2
+
+    def replay(logits, noise) -> int:
+        return int(fs.fused_sample(logits.to(dev)[None],
+                                   noise=noise.to(dev)[None], **kw)[0])
+
+    for rid, (a, b) in enumerate(zip(want, got)):
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            continue
+        logits, noise = draws[(rid, i)]
+        ta, tb = a[i], b[i]
+        y = logits / t + noise
+        gap = float(y[ta] - y[tb])
+        lowered = logits.clone()
+        lowered[ta] -= 2 * tie
+        droppable = not bool(kept(lowered)[ta])
+        if mesh_draws is not None:
+            mlogits, mnoise = mesh_draws[(rid, i)]
+            diff = float((mlogits - logits).abs().max())
+            ok = (torch.equal(mnoise, noise) and diff <= tie
+                  and replay(logits, noise) == ta
+                  and replay(mlogits, mnoise) == tb)
+        else:
+            raised = logits.clone()
+            raised[tb] += 2 * tie
+            diff = None
+            ok = bool(kept(raised)[tb]) and gap <= bound
+        if not ok:
+            raise AssertionError(
+                f"sampled stream {rid} parts at token {i} ({ta} vs {tb}): "
+                f"draw gap {gap} (bound {bound}), logits apart by {diff} "
+                f"at the draw (tie {tie}), a droppable {droppable}")
+        parted.append([rid, i, gap, bound, diff, droppable])
+    edge = sum(p[2] > bound for p in parted)
+    if len(parted) > R_SAMPLED_PARTS or edge > R_EDGE_PARTS:
+        raise AssertionError(
+            f"{len(parted)} sampled streams parted, {edge} past the draw "
+            f"gap bound; at most {R_SAMPLED_PARTS} and {R_EDGE_PARTS} may: "
+            f"{parted}")
+    return parted
+
+
+def forced_tokens(greedy) -> list:
+    """R_FORCED rounds of the first R_GEN["n_slots"] requests' greedy
+    tokens: the inputs of the teacher-forced rounds."""
+    streams = greedy["streams"][:R_GEN["n_slots"]]
+    return [[s[j] for s in streams] for j in range(R_FORCED)]
+
+
+def one_rank_lm(dev, cfg, prefill=None, halves: bool = False,
+                sampled: bool = False) -> dict:
+    """The one-rank engine's results on the same params and requests:
+    admission logits, greedy streams, (``prefill``) the logits of an
+    (8, 256) batch, whole or as two halves (the scatter dispatch's groups
+    over a data axis of 2), (``sampled``) the fused-sampled streams with
+    each draw's logits and noise."""
+    from repro_torch.serving import engine as engine_mod
+    model = build_model(cfg)
+    params = r_init(model, dev)
+    run = dataclasses.replace(serve_cluster.RUN, moe_impl="scatter")
+    engine = Engine(model, serve_cluster.RUN, device=dev)
+    out = {}
+    if prefill is not None:
+        toks = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, prefill).astype(np.int32)
+        eng = Engine(model, run, device=dev)
+        parts = np.split(toks, 2) if halves else [toks]
+        out["prefill_logits"] = torch.cat(
+            [eng.prefill(params, p)[0] for p in parts]).cpu()
+    reqs = r_requests(cfg)
+    cache = engine.new_cache(R_GEN["n_slots"], R_GEN["max_len"])
+    out["admission_logits"] = torch.cat(
+        [engine.prefill_into(params, cache, row, r.prompt[None])[0]
+         for row, r in enumerate(reqs[:R_GEN["n_slots"]])]).cpu()
+    out["greedy"] = r_serve(engine, params, cfg)
+    forced = []
+    for toks in forced_tokens(out["greedy"]):
+        tok = torch.tensor(toks, device=dev, dtype=torch.int32)[:, None]
+        forced.append(engine.decode(params, cache, tok)[0].cpu())
+    out["forced_logits"] = torch.stack(forced)
+    del cache
+    if sampled:
+        with _Draws(engine_mod) as m:
+            reqs = r_requests(cfg)
+            b = ContinuousBatcher(engine, params, n_slots=R_GEN["n_slots"],
+                                  max_len=R_GEN["max_len"], seed=SEED,
+                                  fused_sampling=True, on_token=m.on_token,
+                                  **serve_cluster.SAMPLING)
+            m.batcher = b
+            b.submit_many(reqs)
+            b.run()
+        m.batcher = None  # the batcher and its params go with this frame
+        out["sampled"] = {"streams": [r.generated for r in reqs],
+                          "draws": m.draw}
+    return out
+
+
+def judge_greedy(dev, cfg, prompts, want, got, tie) -> int:
+    """``parted_at_near_ties`` with the one-rank engine, whose params are
+    drawn again (tamed) only where a stream parted."""
+    if all(a == b for a, b in zip(want, got)):
+        return 0
+    model = build_model(cfg)
+    engine = Engine(model, serve_cluster.RUN, device=dev)
+    parted = parted_at_near_ties(engine, r_init(model, dev), prompts, want,
+                                 got, tie)
+    del engine
+    torch.cuda.empty_cache()
+    return parted
+
+
+def check_lm_layout(dev, name, cfg, ranks, ref) -> dict:
+    """Hold one r2/r3 layout's ranks to the one-rank engine: streams equal
+    on every rank; admission (and prefill) logits within PATH_RTOL; greedy
+    (and sampled) streams parted only at near-ties; one decode round's
+    launches (the decode kernel, or the partials kernel, once a layer)
+    and collectives (``want_collectives``); the shard's bytes the
+    planner's; the flash kernel's local heads; the launches over the
+    serving runs."""
+    res = ranks[0]
+    shape, seq = tuple(res["shape"]), res["seq"]
+    d, m = shape
+    for other in ranks[1:]:
+        for mode in ("greedy", "sampled"):
+            if mode in res and other[mode]["streams"] != res[mode]["streams"]:
+                raise AssertionError(f"{name}: ranks' {mode} streams differ")
+    err = rel_rms(res["admission_logits"], ref["admission_logits"])
+    ferr = rel_rms(res["forced_logits"], ref["forced_logits"])
+    diff = max(float((res[k] - ref[k]).abs().max())
+               for k in ("admission_logits", "forced_logits"))
+    tie = NOISE_FACTOR * diff + LOGIT_FLOOR
+    out = {"admission_rel_rms": err, "forced_rel_rms": ferr,
+           "max_abs_diff": diff, "near_tie_bound": tie}
+    if "prefill_logits" in ref:
+        out["prefill_rel_rms"] = rel_rms(res["prefill_logits"],
+                                         ref["prefill_logits"])
+    if max(err, ferr, out.get("prefill_rel_rms", 0.0)) > PATH_RTOL:
+        raise AssertionError(f"{name}: logits vs one rank {out}")
+    prompts = [r.prompt for r in r_requests(cfg)]
+    out["greedy_parted"] = judge_greedy(dev, cfg, prompts,
+                                        ref["greedy"]["streams"],
+                                        res["greedy"]["streams"], tie)
+    if "sampled" in res:
+        out["sampled_partings"] = sampled_parted_at_near_ties(
+            dev, ref["sampled"]["draws"], ref["sampled"]["streams"],
+            res["sampled"]["streams"], tie, serve_cluster.SAMPLING,
+            res["sampled"].get("draws"))
+        out["sampled_parted"] = len(out["sampled_partings"])
+    kernel = "decode_attention_partials" if seq else "decode_attention"
+    want = dict(NO_LAUNCHES, **{kernel: cfg.n_layers})
+    wcol = want_collectives(cfg, shape, seq)
+    for r, x in enumerate(ranks):
+        if x["round_launches"] != want:
+            raise AssertionError(f"{name} rank {r}: a round launched "
+                                 f"{x['round_launches']}, want {want}")
+        got = {k: v for k, v in x["round_collectives"].items() if v}
+        if got != wcol:
+            raise AssertionError(f"{name} rank {r}: a round's collectives "
+                                 f"{got}, want {wcol}")
+        if x["param_bytes"] != x["planned_bytes"]:
+            raise AssertionError(f"{name} rank {r}: {x['param_bytes']} "
+                                 f"param bytes, planned "
+                                 f"{x['planned_bytes']}")
+    if m > 1 and not seq and res["param_bytes"] >= res["whole_bytes"]:
+        raise AssertionError(f"{name}: params not cut over 'model'")
+    hl = cfg.n_heads // m  # kv heads: the rank's, or those its q use
+    kv = (cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0
+          else attention.kv_group(cfg, hl, 0)[1])
+    heads = set() if seq else {(hl, kv)}
+    if set(map(tuple, res["flash_heads"])) != heads:
+        raise AssertionError(f"{name}: flash heads {res['flash_heads']}, "
+                             f"want {heads}")
+    # serving launches: per rank, the decode kernel every round; over the
+    # data ranks of one model line, the flash kernel once a layer an
+    # admission and (sampled) the sampling kernel once an admission, and
+    # on each rank once a round (on the gathered logits under "model")
+    line = ranks[:d * m:m]
+    for mode in ("greedy", "sampled"):
+        if mode not in res:
+            continue
+        counts = [x[mode]["counts"] for x in line]
+        rounds = res[mode]["rounds"]
+        n = R_GEN["n_requests"]
+        flash = sum(c["flash_attention"] for c in counts)
+        decode = {c[kernel] for c in counts}
+        sample = sum(c["fused_sample"] for c in counts)
+        want_sample = n + d * rounds if mode == "sampled" else 0
+        if flash != (0 if seq else cfg.n_layers * n) or \
+                decode != {cfg.n_layers * rounds} or sample != want_sample:
+            raise AssertionError(
+                f"{name} {mode}: flash {flash}, {kernel} {decode}, "
+                f"sampling {sample} over the data ranks ({rounds} rounds, "
+                f"want sampling {want_sample})")
+        out[f"{mode}_sampling_launches"] = sample
+    out.update({k: res[k] for k in (
+        "strategy", "layers", "param_bytes", "planned_bytes",
+        "whole_bytes", "memory_allocated", "cache_block", "flash_heads",
+        "round_collectives", "round_ms", "timed_round_ms",
+        "collective_ms_per_round", "job_s")})
+    out["memory_allocated_per_rank"] = [x["memory_allocated"]
+                                        for x in ranks]
+    out["greedy_tokens_per_s"] = (res["greedy"]["tokens"]
+                                  / res["greedy"]["wall_s"])
+    print(f"(r) {name}: {json.dumps(out)}")
+    return out
+
+
+def check_clf(dev, ranks, cfg) -> dict:
+    """r1: ``launch.serve --mesh 2x2`` on full-width distilbert-imdb
+    against the one-rank classifier on the same (tamed) params."""
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(SEED), dev)
+    tame_attention(cfg, params)
+    engine = Engine(model, RunConfig(attn_impl="pallas"), device=dev)
+    tokens = clf_tokens(cfg)
+    bs = int(R_CLF_ARGV[R_CLF_ARGV.index("--batch-size") + 1])
+    one = np.concatenate([engine.classify_logits(params, tokens[i:i + bs])
+                          for i in range(0, len(tokens), bs)])
+    del params, engine
+    res = ranks[0]
+    if any(x["predictions"] != res["predictions"] for x in ranks):
+        raise AssertionError("(r1) ranks' predictions differ")
+    logits = res["logits"]
+    err = rel_rms(torch.as_tensor(logits), torch.as_tensor(one))
+    diff = float(np.abs(logits - one).max())
+    tie = NOISE_FACTOR * diff + LOGIT_FLOOR
+    labels = one.argmax(-1)
+    preds = np.asarray(res["predictions"])
+    flips = np.flatnonzero(preds != labels)
+    gap = np.abs(one[:, 0] - one[:, 1])
+    hard = [int(i) for i in flips if gap[i] > tie]
+    if err > PATH_RTOL or hard or not np.array_equal(preds,
+                                                     logits.argmax(-1)):
+        raise AssertionError(f"(r1) vs one rank: rel RMS {err}, flips "
+                             f"past near-ties {hard}")
+    for r, x in enumerate(ranks):
+        if x["launches"]["flash_attention"] != \
+                cfg.n_layers * x["classify_calls"] or \
+                [tuple(h) for h in x["flash_heads"]] != [
+                    (cfg.n_heads // 2, cfg.n_kv_heads // 2)]:
+            raise AssertionError(f"(r1) rank {r}: {x['launches']} for "
+                                 f"{x['classify_calls']} classify calls, "
+                                 f"heads {x['flash_heads']}")
+        if x["param_bytes"] != x["planned_bytes"]:
+            raise AssertionError(f"(r1) rank {r}: param bytes")
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": [2, 2],
+           "argv": R_CLF_ARGV, "logit_rel_rms": err, "max_abs_diff": diff,
+           "label_flips": len(flips), "near_tie_bound": tie,
+           "accuracy": res["accuracy"], "classify_calls_per_rank":
+           [x["classify_calls"] for x in ranks],
+           "flash_launches_per_rank": [x["launches"]["flash_attention"]
+                                       for x in ranks],
+           "flash_heads": res["flash_heads"],
+           "param_bytes_per_rank": res["param_bytes"],
+           "collectives_rank0": res["collectives"],
+           "mono_wall_min": res["mono"]["wall_time_min"],
+           "par_wall_min": res["par"]["wall_time_min"],
+           "serve_main_s": res["wall_s"], "job_s": res["job_s"]}
+    print(f"(r) r1_distilbert_serve_mesh_2x2: {json.dumps(out)}")
+    return out
+
+
+def run_tp(dev) -> dict:
+    """Phase (r): tensor-parallel params and a data axis on ranks sharing
+    the card (gloo), each layout held to the one-rank engine on the same
+    (tamed) params and requests. Returns the ranks' launch counts by run,
+    summed over ranks."""
+    torch.cuda.empty_cache()
+    qcfg = R_CONFIG("qwen2-7b")
+    t0 = time.perf_counter()
+    refs = {"qwen": one_rank_lm(dev, qcfg, sampled=True),
+            "moe(2, 1)": one_rank_lm(dev, moe_config(False),
+                                     prefill=R_MOE_PREFILL, halves=True),
+            "moe(1, 2)": one_rank_lm(dev, moe_config(True),
+                                     prefill=R_MOE_PREFILL)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    qf = forced_tokens(refs["qwen"]["greedy"])
+    jobs = {2: [dict(kind="lm", arch="qwen2-7b", shape=s, name=f"qwen{s}",
+                     sampled=refs["qwen"]["sampled"]["streams"],
+                     forced=qf) for s in R_SAMPLED]
+            + [dict(kind="lm", arch="moe", shape=(2, 1), name="moe(2, 1)",
+                    prefill=R_MOE_PREFILL,
+                    forced=forced_tokens(refs["moe(2, 1)"]["greedy"])),
+               dict(kind="lm", arch="moe", shape=(1, 2), name="moe(1, 2)",
+                    prefill=R_MOE_PREFILL, no_drops=True,
+                    forced=forced_tokens(refs["moe(1, 2)"]["greedy"]))],
+            4: [dict(kind="clf", name="distilbert(2, 2)", argv=R_CLF_ARGV)]
+            + [dict(kind="lm", arch="qwen2-7b", shape=s, seq=q, forced=qf,
+                    name=f"qwen{s}{' seq_shard' if q else ''}")
+               for s, q in R_QWEN if s[0] * s[1] == 4]}
+    ranks, walls = {}, {}
+    print(f"(r) one-rank references {ref_s:.1f} s; the card holds "
+          f"{torch.cuda.memory_reserved(dev) / 1e9:.3f} GB here before "
+          f"the ranks start", flush=True)
+    for world, js in jobs.items():
+        t = time.perf_counter()
+        got = run_tp_ranks(dev, world, js)
+        walls[world] = time.perf_counter() - t
+        print(f"(r) {world} ranks: {walls[world]:.1f} s, jobs "
+              f"{ {n: round(x['job_s'], 1) for n, x in got[0].items()} }",
+              flush=True)
+        for job in js:
+            ranks[job["name"]] = [g[job["name"]] for g in got]
+    summary, paths = {}, {}
+    for name, rs in ranks.items():
+        if name.startswith("distilbert"):
+            summary[name] = check_clf(dev, rs,
+                                      R_CONFIG("distilbert-imdb"))
+            counts = [x["launches"] for x in rs]
+        else:
+            cfg = qcfg if name.startswith("qwen") else moe_config(
+                name == "moe(1, 2)")
+            ref = refs["qwen"] if name.startswith("qwen") else refs[name]
+            summary[name] = check_lm_layout(dev, name, cfg, rs, ref)
+            counts = [x[mode]["counts"] for x in rs
+                      for mode in ("greedy", "sampled") if mode in x]
+        paths[f"tp_{name}"] = {k: sum(c[k] for c in counts)
+                               for k in counts[0]}
+    for name, layout in ((s, q) for s, q in R_QWEN):
+        key = f"qwen{name}{' seq_shard' if layout else ''}"
+        if key not in summary:
+            raise AssertionError(f"(r) layout {key} did not run")
+    print(f"(r) every layout held; references {ref_s:.1f} s, ranks "
+          f"{json.dumps(walls)} s")
+    return paths
+
+
 def main():
     if sys.argv[1:2] == ["--rank-worker"]:  # one rank of phase (h)
         rank_worker(sys.argv[2])
         return
     if sys.argv[1:2] == ["--pod-worker"]:  # one rank of phase (p)
         pod_worker(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--tp-worker"]:  # one rank of phase (r)
+        tp_worker(sys.argv[2])
         return
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device here; this script runs the port "
@@ -4693,6 +5470,9 @@ def main():
           run_training_entry_points)
     torch.cuda.empty_cache()
     paths.update(run_families(phase))
+    torch.cuda.empty_cache()
+    paths.update(phase("(r) tensor-parallel and data-axis serving, ranks "
+                       "sharing the card", run_tp))
     # the path each kernel must have been launched on
     main_path = {"flash_attention": "generate_qwen2_7b",
                  "decode_attention": "generate_qwen2_7b",

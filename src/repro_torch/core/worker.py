@@ -109,7 +109,10 @@ class ServerlessFunction:
             t0 = time.perf_counter()
             preds = self.engine.classify(
                 self._params, data["tokens"][chunk.start:chunk.end])
-            compute_s = time.perf_counter() - t0
+            # on a multi-rank mesh every rank takes the slowest rank's time,
+            # so the orchestrator's time-driven decisions (speculation,
+            # timeouts) agree and the ranks' collectives stay in step
+            compute_s = self.engine.agree(time.perf_counter() - t0)
             payload = {"predictions": preds}
 
         duration = (lat.invoke_overhead_s + start_s + load_s + compute_s

@@ -1,9 +1,21 @@
-"""Sequence-sharded decode attention, and the compressed gradient sum.
+"""Sequence-sharded decode attention, the tensor-parallel and data-axis
+collectives, and the compressed gradient sum.
 
 Counterpart of ``repro.dist.collectives``: ``seq_sharded_decode`` and
 ``seq_sharded_write_decode`` for serving, ``compress_psum`` for training
-(the "pod" reduction of ``training.train_step``). Each rank holds one block of
-the KV cache's SEQUENCE dim, (B, S/M, KV, hd) for M ranks on "model",
+(the "pod" reduction of ``training.train_step``). Where the reference's
+GSPMD partitioner inserts collectives for tensor-parallel params and a
+batch cut over the data axes, the port calls them itself:
+:func:`model_sum` (the SUM all_reduce after a row-split matmul),
+:func:`model_gather` (vocab- or expert-split outputs made whole),
+:func:`data_gather` (every data shard's rows) and :func:`data_broadcast`
+(one data shard's result to all). Each counts its calls, and times them
+when :func:`set_timing` is on (``STATS``, read by the card's smoke run).
+Under gloo (ranks sharing a card, or the CPU) a CUDA tensor is staged
+through the host for these; NCCL takes it as it is.
+
+Sequence-sharded decode: each rank holds one block of the KV cache's
+SEQUENCE dim, (B, S/M, KV, hd) for M ranks on "model",
 computes a flash-style partial softmax over it (the
 ``kernels/decode_attention`` partials kernel on CUDA tensors: running max
 ``m``, exp-sum ``den``, weighted values ``num``), and the ranks merge
@@ -28,8 +40,10 @@ card).
 """
 from __future__ import annotations
 
-from typing import Optional
+import time
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.dist import context as ctx
@@ -103,11 +117,133 @@ def _write_at(cache, new, indices):
     return cache
 
 
+# per call kind: [calls, seconds] (seconds only while timing is on)
+STATS: Dict[str, List[float]] = {}
+_TIMING = False
+
+
+def reset_stats():
+    """Zero every call count and time."""
+    STATS.clear()
+
+
+def set_timing(enabled: bool):
+    """Time each collective (the device synchronised around it) into
+    ``STATS``; off by default, since the synchronisation costs."""
+    global _TIMING
+    _TIMING = bool(enabled)
+
+
+def _counted(kind: str, fn, t):
+    """Run ``fn(t)``, counting it under ``kind`` (and timing it)."""
+    entry = STATS.setdefault(kind, [0, 0.0])
+    entry[0] += 1
+    if not _TIMING:
+        return fn(t)
+    cuda = t.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(t.device)
+    t0 = time.perf_counter()
+    out = fn(t)
+    if cuda:
+        torch.cuda.synchronize(t.device)
+    entry[1] += time.perf_counter() - t0
+    return out
+
+
+def _staged(fn, t, group):
+    """``fn(t)`` on the host under gloo when ``t`` is a CUDA tensor (the
+    result moved back), else on ``t`` as it is."""
+    if (t.device.type == "cuda"
+            and torch.distributed.get_backend(group) == "gloo"):
+        return fn(t.cpu()).to(t.device)
+    return fn(t)
+
+
 def _all_reduce(t, op, group):
-    """One collective over the "model" group (a seam the smoke run times
-    through)."""
-    torch.distributed.all_reduce(t, op=op, group=group)
-    return t
+    """One all_reduce (a seam the smoke run times through)."""
+    def run(t):
+        torch.distributed.all_reduce(t, op=op, group=group)
+        return t
+    return _counted("all_reduce", run, t)
+
+
+def _line(axis):
+    """(group, size) of this rank's line along ``axis`` ("model" or the
+    data axes, "data"), or None when it holds one rank."""
+    mesh = ctx.get_mesh()
+    if axis == "model":
+        if ctx.axis_size("model", mesh) <= 1:
+            return None
+        group = mesh.group("model")
+        if group is None:
+            raise ValueError(f"{mesh} has no process group on 'model'")
+        return group, ctx.axis_size("model", mesh)
+    if ctx.dp_size(mesh) <= 1:
+        return None
+    return ctx.dp_group(mesh), ctx.dp_size(mesh)
+
+
+def model_sum(x):
+    """Sum of ``x`` over the "model" axis (the identity on one rank): the
+    all_reduce after a row-split matmul. Summed in fp32 and returned in
+    ``x``'s dtype."""
+    line = _line("model")
+    if line is None:
+        return x
+    group = line[0]
+
+    def run(t):
+        t = t.float().contiguous()
+        torch.distributed.all_reduce(t, group=group)
+        return t
+    return _counted("all_reduce", lambda t: _staged(run, t, group),
+                    x).to(x.dtype)
+
+
+def _gather(x, dim: int, axis: str, kind: str):
+    line = _line(axis)
+    if line is None:
+        return x
+    group, n = line
+
+    def run(t):
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(n)]
+        torch.distributed.all_gather(parts, t, group=group)
+        return torch.cat(parts, dim=dim)
+    return _counted(kind, lambda t: _staged(run, t, group), x)
+
+
+def model_gather(x, dim: int = -1):
+    """The "model" ranks' blocks of ``x`` concatenated along ``dim`` in
+    rank order (``x`` on one rank)."""
+    return _gather(x, dim, "model", "all_gather_model")
+
+
+def data_gather(x, dim: int = 0):
+    """The data shards' rows of ``x`` concatenated along ``dim`` in shard
+    order (``x`` without a data axis)."""
+    return _gather(x, dim, "data", "all_gather_data")
+
+
+def data_broadcast(x, src_index: int):
+    """``x`` as data shard ``src_index`` holds it, on every data shard of
+    this rank's line (same shape and dtype everywhere)."""
+    line = _line("data")
+    if line is None:
+        return x
+    group = line[0]
+    mesh = ctx.get_mesh()
+    src = mesh.rank_at(**dict(zip(
+        ctx.dp_axes(mesh), np.unravel_index(src_index, [
+            ctx.axis_size(a, mesh) for a in ctx.dp_axes(mesh)]))))
+
+    def run(t):
+        t = t.contiguous()
+        torch.distributed.broadcast(t, src=src, group=group)
+        return t
+    return _counted("broadcast", lambda t: _staged(run, t, group), x)
 
 
 def _shard_plan(mesh, seq_shards: int):
@@ -120,11 +256,6 @@ def _shard_plan(mesh, seq_shards: int):
     if seq_shards != msize:
         raise ValueError(f"a cache cut into {seq_shards} sequence blocks "
                          f"does not fit a 'model' axis of {msize} ranks")
-    if any(ctx.axis_size(a, mesh) > 1 for a in ctx.dp_axes(mesh)):
-        raise NotImplementedError(
-            "a data axis larger than 1 (batch-sharded rows across ranks) "
-            "is not ported yet (ROADMAP.md Queue 1 #4.1, a data axis "
-            "larger than 1)")
     group = mesh.group("model")
     if group is None:
         raise ValueError(f"{mesh} has no process group on 'model'")

@@ -10,17 +10,23 @@ initialised default group.
 
 Everything here is mesh-optional: with no active mesh every function
 degrades to a default (size 1, no axes), so the same model code runs
-unmodified on one rank. The reference's ``set_batch_axes`` and sharding
-constraints (``constrain``/``constrain_dims``) serve GSPMD layouts of a
-data axis and tensor-parallel params, which the port does not have yet
-(ROADMAP Queue 1 #4.1, a data axis larger than 1, and #4.2,
-tensor-parallel params).
+unmodified on one rank.
+
+The data axes carry the batch (:func:`dp_axes`, overridable with
+:func:`set_batch_axes` as in the reference). Where the reference's GSPMD
+partitioner places rows by sharding annotations, the port's engine cuts
+them itself and says so with :func:`row_shard`: code that mixes rows (a
+capacity-bound MoE dispatch) reads :func:`current_rows` to learn whether
+its tokens are the whole batch or one data shard of it. The reference's
+``constrain``/``constrain_dims`` are GSPMD placement hints with no
+counterpart in explicit layouts: the port's tensors already have the
+planner's local shapes (ROADMAP Queue 3, differences by design).
 """
 from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -64,9 +70,19 @@ class Mesh:
             raise ValueError(f"rank {self.rank} is not in this mesh")
         return self.coords[axis]
 
-    def group(self, axis: str):
-        """The process group along ``axis`` (None when it has one rank)."""
+    def group(self, axis):
+        """The process group along ``axis``, or along a tuple of axes
+        (their lines taken together, as the data axes are); None when it
+        has one rank."""
+        if isinstance(axis, tuple) and len(axis) == 1:
+            axis = axis[0]
         return self.groups.get(axis)
+
+    def rank_at(self, **coords) -> int:
+        """The rank at this rank's coordinates with ``coords`` replaced
+        (e.g. ``rank_at(data=0)``: this rank's peer on data row 0)."""
+        where = dict(self.coords or {}, **coords)
+        return int(self.devices[tuple(where[a] for a in self.axis_names)])
 
     def __repr__(self):
         return f"Mesh({self.shape}, rank={self.rank})"
@@ -110,10 +126,74 @@ def axis_size(name: str, mesh=None) -> int:
 # ---------------------------------------------------------------------------
 
 
+def set_batch_axes(axes: Optional[Sequence[str]]):
+    """Override which mesh axes carry the batch (``None`` restores the
+    default). Axes absent from the mesh are ignored at query time."""
+    _STATE.batch_axes = tuple(axes) if axes is not None else None
+
+
 def dp_axes(mesh=None) -> tuple:
-    """The data-parallel (batch) mesh axes: every mesh axis except
-    "model"; () without a mesh."""
+    """The data-parallel (batch) mesh axes, honouring
+    :func:`set_batch_axes`. Default: every mesh axis except "model"; ()
+    without a mesh."""
     mesh = mesh if mesh is not None else get_mesh()
+    override = _get("batch_axes")
+    if override is not None:
+        if mesh is None:
+            return tuple(override)
+        return tuple(a for a in override if a in mesh.shape)
     if mesh is None:
         return ()
     return tuple(a for a in mesh.axis_names if a != "model")
+
+
+def dp_size(mesh=None) -> int:
+    """Ranks along the data axes taken together (1 without a mesh)."""
+    mesh = mesh if mesh is not None else get_mesh()
+    return int(np.prod([axis_size(a, mesh) for a in dp_axes(mesh)] or [1]))
+
+
+def dp_index(mesh=None) -> int:
+    """This rank's row-major index along the data axes taken together."""
+    mesh = mesh if mesh is not None else get_mesh()
+    index = 0
+    for a in dp_axes(mesh):
+        index = index * axis_size(a, mesh) + mesh.coord(a)
+    return index
+
+
+def dp_group(mesh=None):
+    """The process group of this rank's line along the data axes (None
+    when they hold one rank)."""
+    mesh = mesh if mesh is not None else get_mesh()
+    if dp_size(mesh) <= 1:
+        return None
+    axes = tuple(a for a in dp_axes(mesh) if axis_size(a, mesh) > 1)
+    group = mesh.group(axes)
+    if group is None:
+        raise ValueError(f"{mesh} has no process group on {axes}")
+    return group
+
+
+# ---------------------------------------------------------------------------
+# Row sharding of the activations
+# ---------------------------------------------------------------------------
+
+
+@contextmanager
+def row_shard(n: int, index: int):
+    """Declare that the activations computed inside hold data shard
+    ``index`` of ``n`` equal shards of the batch's rows (``n == 1``: the
+    whole batch). Nests like :func:`mesh_context`."""
+    prev = _get("rows")
+    _STATE.rows = (int(n), int(index))
+    try:
+        yield
+    finally:
+        _STATE.rows = prev
+
+
+def current_rows() -> Tuple[int, int]:
+    """(shards, index) of the rows being computed: (1, 0) unless inside
+    :func:`row_shard`."""
+    return _get("rows") or (1, 0)

@@ -1,24 +1,364 @@
-"""Where a sequence-sharded cache's blocks live.
+"""Sharding planner: logical param axes -> mesh partition specs -> the
+slice of every tensor that this rank holds.
 
-The reference's planner (``repro.dist.sharding.cache_shardings(
-seq_shard=True)``) puts a decode cache's sequence dim over the "model"
-axis when that axis divides it, and otherwise leaves the dim whole (its
-``sanitize_spec`` drops an axis that does not divide). :func:`seq_blocks`
-is that rule, the one place the port decides it: ``serving.Engine``
+Counterpart of ``repro.dist.sharding``. The planner is the reference's,
+rule for rule, as pure functions on ``AxSpec`` trees and the port's
+``dist.context.Mesh``:
+
+  * "tp"      — tensor parallel only: one TP-natural dim per tensor over
+                the "model" axis (the Megatron layout); params replicated
+                over the data axes. The serving default.
+  * "fsdp"    — ZeRO-3: each tensor's largest dim over EVERY mesh axis.
+  * "fsdp_tp" — "tp" plus a second dim over the data axes.
+
+Every spec passes through :func:`sanitize_spec`, so an axis that does not
+exist or does not divide its dim is dropped. Where the reference hands a
+spec to GSPMD (``NamedSharding``), the port turns it into this rank's
+slice (:class:`Sharding`: per dim, the (axes, index, count) cut) and the
+model code computes on the slices (``models.attention``, ``models.mlp``,
+``models.moe``, ``models.transformer``), with explicit collectives
+(``dist.collectives``) where the reference's partitioner inserts them.
+
+The reference stacks the layers of each pattern position into one leaf
+with a leading "layers" dim that is never sharded; the port's leaves are
+per layer, so a port leaf's spec is the reference's without its first
+entry.
+
+:func:`seq_blocks` is the rule of ``cache_shardings(seq_shard=True)`` for
+the sequence dim, the one place the port decides it: ``serving.Engine``
 allocates and prefills each rank's block by it, and
 ``models.convert.cache_from_reference`` cuts a reference cache by it.
-
-The rest of the reference's planner (param layouts, strategies, input
-specs, mesh slices) lays out tensor-parallel params and a data axis, which
-the port does not have yet: every rank holds the params whole and the
-data axis is 1 (ROADMAP Queue 1 #4.1, a data axis larger than 1, and
-#4.2, tensor-parallel params).
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import numpy as np
 
 from repro_torch.dist import context as ctx
+from repro_torch.models.common import param_bytes, tree_map_spec
+from repro_torch.tree import tree_map
+
+# logical axes eligible for tensor parallelism, in priority order
+TP_CANDIDATES = ("experts", "d_ff", "heads", "kv_heads", "vocab")
+# never shard these: "layers" is the reference's stacked dim, "head_dim"
+# is tiny
+_NEVER_SHARD = ("layers", "head_dim")
+
+HBM_BYTES = 80 * 10 ** 9          # one NVIDIA H100 80GB
+FSDP_MAX_PARAM_BYTES = 16e9       # <=8B bf16 params counts as "small"
+_TRAIN_STATE_MULT = 7             # bf16 params + fp32 master/m/v, /2 bytes
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dim: None (whole), an axis name, or a tuple of
+    axis names (the dim cut over their product). Compares equal to the
+    tuple of its entries, as ``tuple(jax.sharding.PartitionSpec)``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+# ---------------------------------------------------------------------------
+# Spec sanitation
+# ---------------------------------------------------------------------------
+
+
+def sanitize_spec(spec, shape, mesh) -> PartitionSpec:
+    """Drop unusable axes from a spec for a tensor of ``shape``.
+
+    Guarantees about the returned spec:
+      * every named axis exists on ``mesh``,
+      * no axis is used twice,
+      * for each dim the kept axes' combined size divides the dim
+        (axes are considered left-to-right; a non-dividing axis is
+        skipped, later axes may still apply),
+      * length equals ``len(shape)`` (short specs pad with None,
+        over-long specs truncate).
+    """
+    entries = tuple(spec)
+    if len(entries) < len(shape):
+        entries = entries + (None,) * (len(shape) - len(entries))
+    entries = entries[:len(shape)]
+    used = set()
+    out = []
+    for dim, e in zip(shape, entries):
+        if e is None:
+            out.append(None)
+            continue
+        axes = e if isinstance(e, tuple) else (e,)
+        kept, prod = [], 1
+        for a in axes:
+            if a is None or a in used or a not in mesh.shape:
+                continue
+            n = int(mesh.shape[a])
+            if n <= 1 or dim % (prod * n):
+                continue
+            kept.append(a)
+            prod *= n
+            used.add(a)
+        if not kept:
+            out.append(None)
+        elif len(kept) == 1:
+            out.append(kept[0])
+        else:
+            out.append(tuple(kept))
+    return P(*out)
+
+
+# ---------------------------------------------------------------------------
+# Strategy selection
+# ---------------------------------------------------------------------------
+
+
+def pick_strategy(param_specs, mesh, kind: str = "train",
+                  hbm_bytes: int = HBM_BYTES) -> str:
+    """Choose "fsdp" / "tp" / "fsdp_tp" for an (arch, mesh, kind) cell.
+
+    Train: small models go pure-FSDP (the optimizer state must fit
+    sharded over all ranks); everything else ZeRO-3 + TP. Inference: TP
+    alone when the weights fit a rank after the model-axis split (half of
+    ``hbm_bytes``), else additionally sharded over the data axes.
+    """
+    pb = param_bytes(param_specs)
+    chips = int(mesh.devices.size)
+    msize = int(mesh.shape.get("model", 1))
+    if kind == "train":
+        state = pb * _TRAIN_STATE_MULT
+        if pb <= FSDP_MAX_PARAM_BYTES and state <= 0.5 * hbm_bytes * chips:
+            return "fsdp"
+        return "fsdp_tp"
+    if pb / max(msize, 1) <= 0.5 * hbm_bytes:
+        return "tp"
+    return "fsdp_tp"
+
+
+# ---------------------------------------------------------------------------
+# Mesh slicing (replica-per-slice serving)
+# ---------------------------------------------------------------------------
+
+
+def slice_meshes(mesh, n: int):
+    """Partition ``mesh`` into ``n`` disjoint sub-meshes of its ranks.
+
+    The cut runs along the first axis whose size ``n`` divides, data axes
+    first and "model" last, as the reference's. Each slice keeps all of
+    the parent's axis names (the cut axis shrinks to ``size // n``) and
+    this rank's process groups along the axes that were not cut. ``n ==
+    1`` returns ``[mesh]``; raises ``ValueError`` when no axis divides.
+    """
+    if n <= 0:
+        raise ValueError(f"need at least one slice, got n={n}")
+    if n == 1:
+        return [mesh]
+    names = list(mesh.axis_names)
+    order = [a for a in names if a != "model"]
+    if "model" in names:
+        order.append("model")
+    for axis in order:
+        if int(mesh.shape[axis]) % n == 0:
+            subs = np.split(mesh.devices, n, axis=names.index(axis))
+            keep = {k: g for k, g in mesh.groups.items()
+                    if axis not in (k if isinstance(k, tuple) else (k,))}
+            return [ctx.Mesh(s, names, rank=mesh.rank,
+                             groups=keep if mesh.rank in s else {})
+                    for s in subs]
+    raise ValueError(
+        f"cannot cut mesh {dict(mesh.shape)} into {n} disjoint slices: "
+        f"no axis size is divisible by {n}")
+
+
+# ---------------------------------------------------------------------------
+# Param specs
+# ---------------------------------------------------------------------------
+
+
+def _spec_for(s, strategy: str, mesh) -> PartitionSpec:
+    """The spec for one AxSpec leaf under ``strategy``."""
+    names = list(s.axes)
+    entries: list = [None] * len(names)
+    msize = int(mesh.shape.get("model", 1))
+    dp = tuple(a for a in mesh.axis_names if a != "model")
+    dp_size = int(math.prod(mesh.shape[a] for a in dp)) if dp else 1
+
+    if strategy in ("tp", "fsdp_tp") and msize > 1:
+        # one TP-natural dim over "model"; fall through the candidate
+        # list until one divides (e.g. 28 heads on a 16-wide axis -> d_ff)
+        for cand in TP_CANDIDATES:
+            if cand in names:
+                i = names.index(cand)
+                if s.shape[i] % msize == 0:
+                    entries[i] = "model"
+                    break
+
+    if strategy == "fsdp":
+        all_axes = tuple(mesh.axis_names)
+        order = sorted((i for i in range(len(names))
+                        if names[i] not in _NEVER_SHARD),
+                       key=lambda i: -s.shape[i])
+        for i in order:
+            entries[i] = all_axes
+            break
+    elif strategy == "fsdp_tp" and dp and dp_size > 1:
+        # ZeRO-3: largest remaining dim over the data axes
+        order = sorted((i for i in range(len(names))
+                        if entries[i] is None
+                        and names[i] not in _NEVER_SHARD),
+                       key=lambda i: -s.shape[i])
+        for i in order:
+            if s.shape[i] % dp_size == 0:
+                entries[i] = dp if len(dp) > 1 else dp[0]
+                break
+    return sanitize_spec(P(*entries), s.shape, mesh)
+
+
+def param_specs_tree(param_specs, strategy: str, mesh):
+    """Tree of PartitionSpec mirroring an AxSpec param tree."""
+    return tree_map_spec(lambda s: _spec_for(s, strategy, mesh), param_specs)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """This rank's slice of one tensor: the planner's ``spec`` and, per
+    dim, None (whole) or the cut ``(axes, index, count)``: the dim is cut
+    into ``count`` equal blocks over ``axes`` and this rank holds block
+    ``index``."""
+
+    spec: PartitionSpec
+    cuts: Tuple[Optional[tuple], ...]
+
+    def local_shape(self, shape) -> tuple:
+        return tuple(n if c is None else n // c[2]
+                     for n, c in zip(shape, self.cuts))
+
+    def slice(self, x):
+        """This rank's block of ``x`` (a tensor or array of the whole
+        shape): a view; callers copy it where they keep it."""
+        idx = tuple(slice(None) if c is None else
+                    slice(c[1] * (n // c[2]), (c[1] + 1) * (n // c[2]))
+                    for n, c in zip(x.shape, self.cuts))
+        return x[idx]
+
+    @property
+    def replicated(self) -> bool:
+        return all(c is None for c in self.cuts)
+
+
+def rank_sharding(spec, mesh) -> Sharding:
+    """The :class:`Sharding` of ``spec`` for ``mesh``'s rank."""
+    cuts = []
+    for e in spec:
+        if e is None:
+            cuts.append(None)
+            continue
+        axes = e if isinstance(e, tuple) else (e,)
+        index, count = 0, 1
+        for a in axes:
+            n = int(mesh.shape[a])
+            index = index * n + mesh.coord(a)
+            count *= n
+        cuts.append((e, index, count))
+    return Sharding(P(*spec), tuple(cuts))
+
+
+def param_shardings(param_specs, strategy: str, mesh):
+    """Tree of :class:`Sharding` (this rank's slice of every leaf)
+    mirroring an AxSpec param tree."""
+    return tree_map_spec(
+        lambda s: rank_sharding(_spec_for(s, strategy, mesh), mesh),
+        param_specs)
+
+
+def drop_axis(spec, axis: str) -> PartitionSpec:
+    """``spec`` with ``axis`` removed from every entry."""
+    out = []
+    for e in spec:
+        axes = tuple(a for a in (e if isinstance(e, tuple) else (e,))
+                     if a is not None and a != axis)
+        out.append(None if not axes else axes[0] if len(axes) == 1
+                   else axes)
+    return P(*out)
+
+
+# ---------------------------------------------------------------------------
+# Input / cache shardings
+# ---------------------------------------------------------------------------
+
+
+def _shape(x) -> tuple:
+    return tuple(getattr(x, "shape", np.shape(x)))
+
+
+def input_shardings(inputs, mesh):
+    """Batch-shard dim 0 of every input leaf over the data axes."""
+    dp = ctx.dp_axes(mesh)
+
+    def one(x):
+        shape = _shape(x)
+        if not shape:
+            return P()
+        spec = P(dp if dp else None, *([None] * (len(shape) - 1)))
+        return sanitize_spec(spec, shape, mesh)
+
+    return tree_map(one, inputs)
+
+
+def cache_shardings(cache, cfg, mesh, *, seq_shard: bool = False):
+    """Specs for a decode cache of the whole batch (``transformer.Cache``
+    or ``encdec.EncDecCache``; shapes are read, nothing is allocated).
+
+    Attention KV leaves (B, T, KV, hd) shard batch over the data axes
+    and, when ``seq_shard``, the sequence over "model"; otherwise kv_heads
+    over "model" when it divides them. SSM leaves and the (B,) lengths
+    shard batch only. A ``transformer.Cache`` comes back as a Cache of
+    specs; any other cache as a dict of field name -> specs.
+    """
+    dp = ctx.dp_axes(mesh)
+    dpe = dp if dp else None
+
+    def one(x):
+        n = len(_shape(x))
+        if n == 0:
+            return P()
+        if n >= 4:
+            lead = (None,) * (n - 4)
+            spec = (P(*lead, dpe, "model", None, None) if seq_shard
+                    else P(*lead, dpe, None, "model", None))
+        else:
+            spec = P(dpe)
+        return sanitize_spec(spec, _shape(x), mesh)
+
+    def batch_only(x):
+        n = len(_shape(x))
+        if n == 0:
+            return P()
+        return sanitize_spec(P(dpe, *([None] * (n - 1))), _shape(x), mesh)
+
+    layers = getattr(cache, "layers", None)
+    if layers is not None and cfg is not None and not cfg.encdec:
+        out = []
+        for layer, leaves in enumerate(layers):
+            kv = cfg.pattern[layer % cfg.period].mixer.startswith("attn")
+            out.append({name: (one if kv else batch_only)(t)
+                        for name, t in leaves.items()})
+        return dataclasses.replace(cache, layers=tuple(out),
+                                   lengths=batch_only(cache.lengths))
+    return {f.name: tree_map(lambda x: one(x) if len(_shape(x)) >= 4
+                             else batch_only(x), getattr(cache, f.name))
+            for f in dataclasses.fields(cache)}
+
+
+# ---------------------------------------------------------------------------
+# Sequence blocks of a seq-sharded cache
+# ---------------------------------------------------------------------------
 
 
 def seq_blocks(mesh, max_len: int) -> Tuple[int, int]:

@@ -116,8 +116,9 @@ def init_from_env(device) -> torch.device:
 def make_host_mesh(shape=(2, 4), axes=("data", "model")) -> Mesh:
     """A mesh of ``shape`` over the ranks of the default process group
     (one rank without one), rank r at row-major position r. Builds one
-    process group per line of every axis longer than 1 (every rank makes
-    every group, in the same order, as ``new_group`` requires) and keeps
+    process group per line of every axis longer than 1, and of the data
+    axes taken together when more than one of them is (every rank makes
+    every group, in the same order, as ``new_group`` requires), and keeps
     this rank's."""
     shape = tuple(int(n) for n in shape)
     world = dist.get_world_size() if dist.is_initialized() else 1
@@ -126,17 +127,23 @@ def make_host_mesh(shape=(2, 4), axes=("data", "model")) -> Mesh:
         raise ValueError(f"mesh {dict(zip(axes, shape))} needs "
                          f"{int(np.prod(shape))} ranks; {world} running")
     grid = np.arange(world).reshape(shape)
-    groups: Dict[str, object] = {}
-    for i, axis in enumerate(axes):
-        if shape[i] == 1:
-            continue
-        lines = np.moveaxis(grid, i, -1).reshape(-1, shape[i])
+    groups: Dict[object, object] = {}
+    lined = [(axis,) for axis, n in zip(axes, shape) if n > 1]
+    data = tuple(a for (a,) in lined if a != "model")
+    if len(data) > 1:  # the data axes taken together carry the batch
+        lined.append(data)
+    for line_axes in lined:
+        dims = [axes.index(a) for a in line_axes]
+        rest = [i for i in range(len(axes)) if i not in dims]
+        n = int(np.prod([shape[i] for i in dims]))
+        lines = np.transpose(grid, rest + dims).reshape(-1, n)
         for line in lines:
             ranks = [int(r) for r in line]
             group = (dist.group.WORLD if len(ranks) == world
                      else dist.new_group(ranks))
             if rank in ranks:
-                groups[axis] = group
+                groups[line_axes if len(line_axes) > 1
+                       else line_axes[0]] = group
     return Mesh(grid, axes, rank=rank, groups=groups)
 
 

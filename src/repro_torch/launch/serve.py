@@ -34,10 +34,19 @@ shard→prefill→decode→reduce DAG (``repro_torch.batch``) on cloud-profiled
 replica pools — heterogeneous spot/on-demand placement, preemptions
 survived with bit-identical outputs, optional ``--chaos`` ladder.
 
-Not in the port yet: ``--mesh-slices`` (ROADMAP Queue 1 #4.3, replicas on
-mesh slices), and meshes one process cannot form: ``--mesh 1x1
---seq-shard`` runs here, more ranks run through ``python -m
-repro_torch.examples.serve_cluster --ranks M``.
+Mesh mode: ``--mesh DxM`` lays a ("data", "model") mesh under the
+engine, as the reference's: params in the planner's layout ("tp": heads,
+d_ff, experts and vocabulary cut over "model"), the batch's rows cut over
+"data", and with ``--seq-shard`` the decode KV cache's sequence over
+"model". PyTorch runs one process a rank: with D * M > 1 this command
+spawns D * M ranks of itself (``launch.mesh.spawn_ranks``, gloo where
+they share a card or run on the CPU, NCCL where each has a GPU), every
+rank runs the same job on the same inputs, and rank 0's report is the
+one printed. A multi-rank mesh serves the offline mode and ``--router``
+on its modeled clock; modes driven by each rank's own host clock
+(``--measured-time``, ``--calibrate``, ``--http``) would take different
+decisions on different ranks, and raise. Not in the port yet:
+``--mesh-slices`` (ROADMAP Queue 1 #4.3, replicas on mesh slices).
 
 Usage:
   python -m repro_torch.launch.serve --n-items 256 --batch-size 32 \
@@ -51,14 +60,20 @@ Usage:
       # curl -N -d '{"prompt": [3,1,4,1,5], "max_new_tokens": 8}' \
       #     http://127.0.0.1:8765/v1/generate
   python -m repro_torch.launch.serve --router --device cpu
+  python -m repro_torch.launch.serve --mesh 2x2 --device cpu  # 4 ranks
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
+import os
+import sys
+import tempfile
 import time
 from typing import Awaitable, Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import configs
@@ -73,7 +88,9 @@ from repro_torch.core import (ArtifactStore, BatchJob, FaultInjector,
 from repro_torch.data import imdb_reviews
 from repro_torch.data.pipeline import DatasetRef
 from repro_torch.models import RunConfig, build
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.dist.context import Mesh
+from repro_torch.launch.mesh import (init_from_env, make_host_mesh, rank_env,
+                                     spawn_ranks)
 from repro_torch.models.common import ModelConfig
 from repro_torch.obs import Observability, TraceRecorder
 from repro_torch.router import (TRAFFIC, CalibratedLatencyModel,
@@ -93,20 +110,27 @@ def run_offline(cfg: ModelConfig, *, n_items: int = 256, seq_len: int = 64,
                 crash_prob: float = 0.0, straggler_prob: float = 0.0,
                 seed: int = 0, device="cuda",
                 run: RunConfig = RunConfig(attn_impl="pallas"),
-                per_item_s: Optional[float] = None, params=None) -> dict:
+                per_item_s: Optional[float] = None, params=None,
+                mesh=None, seq_shard: bool = False) -> dict:
     """Run one batch job monolithically, then in parallel, and compare.
 
-    ``params`` defaults to a random init from ``seed``; ``per_item_s`` set
-    switches the workers to modeled compute (no inference, no predictions).
+    ``params`` (whole) defaults to a random init from ``seed``; under a
+    ``mesh`` the engine keeps this rank's shard of them. ``per_item_s``
+    set switches the workers to modeled compute (no inference, no
+    predictions).
     Returns the two ``summary()`` dicts under "mono"/"par", the reports,
     the host seconds each run took, the engine and its placed params, every
     worker created, the labels, and — with real compute — the merged
     predictions of both runs and the parallel accuracy.
     """
     model = build(cfg)
-    engine = Engine(model, run, device=device)
+    engine = Engine(model, run, device=device, mesh=mesh,
+                    seq_shard=seq_shard)
     if params is None:
-        params = model.init(torch.Generator().manual_seed(seed), device)
+        params = model.init(torch.Generator().manual_seed(seed), device,
+                            shardings=engine.params_sharding)
+    else:
+        params = engine.shard_params(params)
     params = engine.place_params(params)
 
     tokens, labels = imdb_reviews(n=n_items, seq_len=seq_len,
@@ -194,10 +218,10 @@ def lm_engine(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     engine = Engine(model, RunConfig(attn_impl="pallas", cache_pad=cache_pad,
                                      kv_dtype=kv_dtype),
                     device=device, mesh=mesh, seq_shard=seq_shard)
-    if params is None:
-        params = model.init(
+    if params is None:  # this rank's slices, drawn leaf by leaf
+        return engine, model.init(
             torch.Generator(device=engine.device).manual_seed(seed),
-            engine.device)
+            engine.device, shardings=engine.params_sharding)
     return engine, engine.shard_params(params)
 
 
@@ -537,24 +561,63 @@ def run_batch_dag(cfg: ModelConfig, *, engine: Optional[Engine] = None,
     return out
 
 
-def parse_mesh(spec: Optional[str], seq_shard: bool):
-    """``--mesh DxM`` as a mesh this one process can form: ``1x1``. Other
-    shapes need one process a rank."""
+def parse_mesh(spec: Optional[str]) -> Optional[tuple]:
+    """``--mesh DxM`` as the (D, M) shape of a ("data", "model") mesh."""
     if spec is None:
         return None
-    shape = tuple(int(x) for x in spec.lower().split("x"))
-    if shape != (1, 1):
-        raise SystemExit(
-            f"--mesh {spec}: one process forms only a 1x1 mesh; run more "
-            f"ranks with python -m repro_torch.examples.serve_cluster "
-            f"--ranks M (a (1, M) sequence-sharded mesh)")
-    if not seq_shard:
-        raise SystemExit("--mesh 1x1 serves sequence-sharded decode: add "
-                         "--seq-shard")
-    return make_host_mesh(shape, ("data", "model"))
+    try:
+        shape = tuple(int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        shape = ()
+    if len(shape) != 2 or min(shape) < 1:
+        raise SystemExit(f"--mesh {spec}: want DxM, e.g. 2x2")
+    return shape
 
 
-def main(argv=None):
+def check_layout(cfg: ModelConfig, shape: tuple, *, seq_shard: bool,
+                 kv_dtype: str = "bf16"):
+    """Raise ``SystemExit`` before any rank starts when the engine would
+    refuse ``cfg`` on a ``shape`` mesh (the layout rank 0 would plan)."""
+    grid = np.arange(int(np.prod(shape))).reshape(shape)
+    try:
+        Engine(build(cfg), RunConfig(kv_dtype=kv_dtype), device="cpu",
+               mesh=Mesh(grid, ("data", "model")), seq_shard=seq_shard)
+    except (NotImplementedError, ValueError) as e:
+        raise SystemExit(f"--mesh {'x'.join(map(str, shape))}: {e}")
+
+
+def spawn_mesh(argv: Sequence[str], ranks: int, timeout: float) -> dict:
+    """This command as ``ranks`` processes (``launch.mesh.spawn_ranks``):
+    relays rank 0's output and returns its result (``--result``)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        result = os.path.join(tmp, "result.json")
+        done = spawn_ranks(["-m", "repro_torch.launch.serve", *argv,
+                            "--result", result], ranks,
+                           store_path=os.path.join(tmp, "store"),
+                           timeout=timeout)
+        print(done[0].stdout, end="")
+        for r, p in enumerate(done):
+            if p.returncode:
+                print(p.stderr[-4000:], file=sys.stderr)
+                raise SystemExit(f"rank {r} of {ranks} exited "
+                                 f"{p.returncode}")
+        with open(result) as f:
+            return json.load(f)
+
+
+def _jsonable(x):
+    if isinstance(x, dict):
+        return {str(k): _jsonable(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_jsonable(v) for v in x]
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    if isinstance(x, np.generic):
+        return x.item()
+    return x
+
+
+def main(argv=None, *, rank_timeout: float = 3600.0):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="distilbert-imdb")
     ap.add_argument("--n-items", type=int, default=256)
@@ -567,10 +630,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help='where the model runs ("cuda" or "cpu")')
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help='("data", "model") mesh shape of the online '
-                         'modes; one process forms "1x1" (with '
-                         "--seq-shard), more ranks run through "
-                         "repro_torch.examples.serve_cluster --ranks")
+                    help='("data", "model") mesh shape; D * M > 1 spawns '
+                         "that many ranks of this command")
+    ap.add_argument("--full-width", action="store_true",
+                    help="serve --arch at its published width "
+                         "(configs.get) instead of its smoke config")
+    ap.add_argument("--result", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--seq-shard", action="store_true",
                     help="sequence-shard decode KV caches over 'model'")
     ap.add_argument("--kv-dtype", default="bf16",
@@ -667,9 +732,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.mesh_slices:
-        raise SystemExit("--mesh-slices needs Engine.for_mesh and "
-                         "slice_meshes, not ported yet (ROADMAP Queue 1 "
-                         "#4.3)")
+        raise SystemExit("--mesh-slices needs Engine.for_mesh and the "
+                         "pool's SlicePool, not ported yet (ROADMAP Queue "
+                         "1 #4.3)")
     if args.batch_dag:
         return run_batch_dag(
             configs.smoke(args.router_arch), seed=args.seed,
@@ -680,12 +745,27 @@ def main(argv=None):
             max_new_tokens=args.max_new_tokens, n_slots=args.n_slots,
             per_token_s=args.per_token_s, chaos=args.chaos)
     online = args.http or args.router or args.calibrate
-    if args.mesh and not online:
-        raise SystemExit("--mesh applies to --router, --calibrate and "
-                         "--http in the port")
-    mesh = parse_mesh(args.mesh, args.seq_shard)
+    arch = args.router_arch if online else args.arch
+    cfg = configs.get(arch) if args.full_width else configs.smoke(arch)
+    shape = parse_mesh(args.mesh)
+    mesh = None
+    if shape is not None:
+        ranks = int(np.prod(shape))
+        if ranks > 1 and (args.http or args.calibrate or args.measured_time):
+            raise SystemExit(
+                "--http, --calibrate and --measured-time read each rank's "
+                "own host clock, so ranks would part ways; a multi-rank "
+                "--mesh serves the offline mode and --router on its "
+                "modeled clock (ROADMAP.md Queue 1 #4.3)")
+        if ranks > 1 and rank_env()[1] == 1:  # the launcher: start ranks
+            check_layout(cfg, shape, seq_shard=args.seq_shard,
+                         kv_dtype=args.kv_dtype)
+            argv = list(argv if argv is not None else sys.argv[1:])
+            return spawn_mesh(argv, ranks, rank_timeout)
+        device = init_from_env(args.device)
+        args.device = str(device)
+        mesh = make_host_mesh(shape, ("data", "model"))
     if online:
-        cfg = configs.smoke(args.router_arch)
         engine, params = lm_engine(cfg, seed=args.seed, device=args.device,
                                    kv_dtype=args.kv_dtype, mesh=mesh,
                                    seq_shard=args.seq_shard)
@@ -720,14 +800,26 @@ def main(argv=None):
                           measured_time=args.measured_time,
                           calibration=cal, budget_usd=args.budget_usd,
                           **common)
-        return {name: run["summary"] for name, run in runs.items()}
-    out = run_offline(configs.smoke(args.arch), n_items=args.n_items,
-                      seq_len=args.seq_len, batch_size=args.batch_size,
+        return _result(args, {name: run["summary"]
+                              for name, run in runs.items()})
+    out = run_offline(cfg, n_items=args.n_items, seq_len=args.seq_len,
+                      batch_size=args.batch_size,
                       concurrency=args.concurrency,
                       crash_prob=args.crash_prob,
                       straggler_prob=args.straggler_prob, seed=args.seed,
-                      device=args.device)
-    return {"mono": out["mono"], "par": out["par"]}
+                      device=args.device, mesh=mesh,
+                      seq_shard=args.seq_shard)
+    return _result(args, {"mono": out["mono"], "par": out["par"],
+                          "predictions": out["predictions"],
+                          "accuracy": out["accuracy"]})
+
+
+def _result(args, result: dict) -> dict:
+    """``result``, written as JSON to ``--result`` by rank 0."""
+    if args.result and rank_env()[0] == 0:
+        with open(args.result, "w") as f:
+            json.dump(_jsonable(result), f)
+    return result
 
 
 if __name__ == "__main__":

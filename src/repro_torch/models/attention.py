@@ -26,6 +26,15 @@ KV.
                the plain path, as the reference's does. An int8 or a
                paged cache raises the reference's ``ValueError``.
 
+Under a "model" axis the planner cuts wq/bq and wo by heads and wk/wv/bk/bv
+by kv heads where the axis divides them (the Megatron split): each rank
+projects and attends its own heads, and the output projection's partial
+sums are summed over "model" (``dist.collectives.model_sum``), ``bo``
+added once after. Where the q heads are cut but the kv heads are not (M
+does not divide them), every rank computes and caches the whole k/v and
+its q heads attend the kv heads they map onto (:func:`kv_slice`); a
+layout in which they map onto no uniform group raises.
+
 The projections are single matmuls over the flattened head dims, so q, k
 and v come out contiguous, as the kernels want them. Decode and paged
 prefill write the new k/v (and scales) into the caller's cache or pools
@@ -33,11 +42,12 @@ IN PLACE (the reference donates the cache buffer to the same effect).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.dist import collectives
+from repro_torch.dist import context as dctx
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.quant import (dequantize_kv,
                                                         quantize_kv)
@@ -100,13 +110,54 @@ def project_qkv(cfg: ModelConfig, p, x, kv_x=None):
     return q, k, v
 
 
-def out_proj(p, o):
+def out_proj(cfg: ModelConfig, p, o):
+    """o (..., H, hd) -> (..., D); a rank holding a block of the heads
+    sums its partial output over "model" before ``bo`` is added."""
     h, hd, d = p["wo"].shape
     y = o.reshape(*o.shape[:-2], h * hd) @ p["wo"].to(o.dtype).reshape(
         h * hd, d)
+    if h < cfg.n_heads:
+        y = collectives.model_sum(y)
     if "bo" in p:
         y = y + p["bo"].to(y.dtype)
     return y
+
+
+def kv_slice(cfg: ModelConfig, p) -> Optional[Tuple[int, int]]:
+    """(first kv head, kv heads) that this rank's q heads attend when the
+    planner cut the q heads over "model" but left the kv heads whole;
+    None when the rank's k/v heads are exactly the ones its q heads use
+    (no cut, or both cut). The rank's q heads must map onto whole kv
+    heads with one uniform group; other layouts raise."""
+    hl, kvl = p["wq"].shape[1], p["wk"].shape[1]
+    if hl == cfg.n_heads or kvl < cfg.n_kv_heads:
+        return None
+    return kv_group(cfg, hl, dctx.get_mesh().coord("model"))
+
+
+def kv_group(cfg: ModelConfig, hl: int, index: int) -> Tuple[int, int]:
+    """(first kv head, kv heads) of whole kv heads that q-head block
+    ``index`` of ``hl`` heads attends; raises where they map onto no
+    uniform group."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    first = index * hl
+    if hl % g == 0:
+        return first // g, hl // g
+    if g % hl == 0:
+        return first // g, 1
+    raise NotImplementedError(
+        f"{cfg.name}: {hl} q heads a rank over {cfg.n_kv_heads} whole kv "
+        f"heads (groups of {g}) map onto no uniform group; this GQA layout "
+        f"is not served (ROADMAP.md Queue 3, differences by design)")
+
+
+def _kv_view(t, sel, contiguous: bool):
+    """The kv heads ``sel`` of a (..., KV, hd) tensor (all when None);
+    copied where a kernel wants it contiguous."""
+    if sel is None:
+        return t
+    t = t[..., sel[0]:sel[0] + sel[1], :]
+    return t.contiguous() if contiguous else t
 
 
 # ---------------------------------------------------------------------------
@@ -224,9 +275,12 @@ def attn_forward(cfg: ModelConfig, p, x, *, mixer: str, positions,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     window = cfg.window if mixer == "attn_local" else None
-    o = attend_full(q, k, v, mask_kind=mask_kind, window=window,
+    sel = kv_slice(cfg, p)
+    kernel = impl == "pallas"
+    o = attend_full(q, _kv_view(k, sel, kernel), _kv_view(v, sel, kernel),
+                    mask_kind=mask_kind, window=window,
                     cap=cfg.attn_softcap, impl=impl)
-    y = out_proj(p, o)
+    y = out_proj(cfg, p, o)
     return (y, (k, v)) if return_kv else y
 
 
@@ -285,7 +339,7 @@ def attn_decode_layer(cfg: ModelConfig, p, x, k_cache, v_cache, lengths, *,
         o, k_cache, v_cache = collectives.seq_sharded_write_decode(
             q, k, v, k_cache, v_cache, lengths, window=window,
             cap=cfg.attn_softcap, seq_shards=seq_shards)
-        return out_proj(p, o), k_cache, v_cache
+        return out_proj(cfg, p, o), k_cache, v_cache
     if quant:
         k, ks_new = quantize_kv(k)  # (B,1,KV,hd) int8, (B,1,KV,1) fp32
         v, vs_new = quantize_kv(v)
@@ -293,12 +347,15 @@ def attn_decode_layer(cfg: ModelConfig, p, x, k_cache, v_cache, lengths, *,
         write_kv_rows(v_scale, vs_new, lengths)
     write_kv_rows(k_cache, k, lengths)
     write_kv_rows(v_cache, v, lengths)
-    o = attend_decode(q, k_cache, v_cache, lengths, k_scale=k_scale,
-                      v_scale=v_scale, window=window, cap=cfg.attn_softcap,
-                      impl=impl)
+    sel = kv_slice(cfg, p)
+    kernel = impl == "pallas"
+    o = attend_decode(q, _kv_view(k_cache, sel, kernel),
+                      _kv_view(v_cache, sel, kernel), lengths,
+                      k_scale=k_scale, v_scale=v_scale, window=window,
+                      cap=cfg.attn_softcap, impl=impl)
     if quant:
-        return out_proj(p, o), k_cache, v_cache, k_scale, v_scale
-    return out_proj(p, o), k_cache, v_cache
+        return out_proj(cfg, p, o), k_cache, v_cache, k_scale, v_scale
+    return out_proj(cfg, p, o), k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------
@@ -387,8 +444,8 @@ def attn_decode_layer_paged(cfg: ModelConfig, p, x, k_pages, v_pages,
                             k_scale=k_scale, v_scale=v_scale, window=window,
                             cap=cfg.attn_softcap, impl=impl)
     if quant:
-        return out_proj(p, o), k_pages, v_pages, k_scale, v_scale
-    return out_proj(p, o), k_pages, v_pages
+        return out_proj(cfg, p, o), k_pages, v_pages, k_scale, v_scale
+    return out_proj(cfg, p, o), k_pages, v_pages
 
 
 def attn_extend_layer_paged(cfg: ModelConfig, p, x, k_pages, v_pages,
@@ -434,8 +491,8 @@ def attn_extend_layer_paged(cfg: ModelConfig, p, x, k_pages, v_pages,
     o = _attend_dense(q, kr.to(q.dtype), vr.to(q.dtype), mask_kind="causal",
                       window=window, cap=cfg.attn_softcap, q_offset=start)
     if quant:
-        return out_proj(p, o), k_pages, v_pages, k_scale, v_scale
-    return out_proj(p, o), k_pages, v_pages
+        return out_proj(cfg, p, o), k_pages, v_pages, k_scale, v_scale
+    return out_proj(cfg, p, o), k_pages, v_pages
 
 
 # ---------------------------------------------------------------------------
@@ -454,7 +511,7 @@ def cross_attn_forward(cfg: ModelConfig, p, x, enc_k, enc_v, *,
         q = q + p["bq"].to(q.dtype)
     o = attend_full(q, enc_k, enc_v, mask_kind="bidir", cap=cfg.attn_softcap,
                     impl="xla" if impl == "seq_shard" else impl)
-    return out_proj(p, o)
+    return out_proj(cfg, p, o)
 
 
 def cross_kv(cfg: ModelConfig, p, enc_out):

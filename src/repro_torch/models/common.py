@@ -19,7 +19,8 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.tree import tree_leaves_with_path, tree_map
+from repro_torch.tree import (tree_leaves_with_path, tree_map,
+                              tree_map_with_path)
 
 # ---------------------------------------------------------------------------
 # Param descriptors
@@ -61,7 +62,8 @@ def param_bytes(spec_tree) -> int:
                for s in spec_leaves(spec_tree))
 
 
-def init_params(spec_tree, generator: torch.Generator, device="cuda"):
+def init_params(spec_tree, generator: torch.Generator, device="cuda",
+                shardings=None):
     """Materialize a descriptor tree into tensors on ``device``.
 
     Draws come from ``generator`` on the generator's own device, in tree
@@ -69,29 +71,41 @@ def init_params(spec_tree, generator: torch.Generator, device="cuda"):
     same weights wherever they land. A CUDA generator draws on the card,
     which a full-width model needs (billions of values); a CPU generator
     gives the same weights on every device. On the ``meta`` device
-    nothing is drawn or allocated.
+    nothing is drawn or allocated. ``shardings`` (a tree of
+    ``dist.sharding.Sharding`` mirroring ``spec_tree``) keeps only this
+    rank's slice of each leaf, a copy, as it is drawn: the same values as
+    the whole init's, with at most one whole leaf alive at a time.
     """
     device = torch.device(device)
+    cuts = dict(tree_leaves_with_path(shardings)) if shardings else {}
 
-    def one(s: AxSpec):
-        if device.type == "meta":
-            return torch.empty(s.shape, dtype=s.dtype, device=device)
-        if s.init == "zeros":
-            return torch.zeros(s.shape, dtype=s.dtype, device=device)
-        if s.init == "ones":
-            return torch.ones(s.shape, dtype=s.dtype, device=device)
-        fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
-        std = s.scale if s.scale is not None else 1.0 / math.sqrt(
-            max(fan_in, 1))
-        if s.init == "embed":
-            std = s.scale if s.scale is not None else 0.02
-        if s.init == "small":
-            std = 0.006
-        x = torch.randn(s.shape, generator=generator,
-                        dtype=torch.float32, device=generator.device) * std
-        return x.to(device=device, dtype=s.dtype)
+    def one(path, s: AxSpec):
+        t = _draw(s, generator, device)
+        cut = cuts.get(path)
+        if cut is None or cut.replicated:
+            return t
+        return cut.slice(t).clone()
 
-    return tree_map_spec(one, spec_tree)
+    return tree_map_with_path(one, spec_tree, is_axspec)
+
+
+def _draw(s: AxSpec, generator: torch.Generator, device):
+    if device.type == "meta":
+        return torch.empty(s.shape, dtype=s.dtype, device=device)
+    if s.init == "zeros":
+        return torch.zeros(s.shape, dtype=s.dtype, device=device)
+    if s.init == "ones":
+        return torch.ones(s.shape, dtype=s.dtype, device=device)
+    fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+    std = s.scale if s.scale is not None else 1.0 / math.sqrt(
+        max(fan_in, 1))
+    if s.init == "embed":
+        std = s.scale if s.scale is not None else 0.02
+    if s.init == "small":
+        std = 0.006
+    x = torch.randn(s.shape, generator=generator,
+                    dtype=torch.float32, device=generator.device) * std
+    return x.to(device=device, dtype=s.dtype)
 
 
 # ---------------------------------------------------------------------------

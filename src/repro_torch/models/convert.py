@@ -12,6 +12,12 @@ leaf and on any shape that disagrees. ``cache_from_reference`` does the
 same for a decode cache (bf16 or int8 attention layers, SSM layers, or an
 encoder-decoder's ``EncDecCache``) and ``paged_cache_from_reference`` for
 a paged one, so a test can hand both sides one cache.
+
+``from_reference(..., shardings=)`` gives one rank of a mesh its shard:
+it cuts each reference leaf by the planner's ``Sharding``
+(``serving.Engine.params_sharding``) in host memory and moves only the
+rank's slice to ``device``; ``gather_shards`` puts the ranks' shards back
+together.
 """
 from __future__ import annotations
 
@@ -50,11 +56,16 @@ def _to_tensor(arr, dtype, device):
     return torch.tensor(arr).to(device=device, dtype=dtype)
 
 
-def from_reference(params_np, cfg: ModelConfig, device="cuda"):
+def from_reference(params_np, cfg: ModelConfig, device="cuda",
+                   shardings=None):
     """Reference param tree (nested dicts/tuples of numpy arrays, bf16 or
-    fp32) -> the port's tree of tensors on ``device``."""
+    fp32) -> the port's tree of tensors on ``device``; with ``shardings``
+    (a tree of ``dist.sharding.Sharding`` mirroring the port's params)
+    each leaf is cut on the host first and only this rank's slice reaches
+    ``device``."""
     ref = {path: np.asarray(leaf)
            for path, leaf in tree_leaves_with_path(params_np)}
+    cuts = dict(tree_leaves_with_path(shardings)) if shardings else {}
     used = set()
 
     def convert(path, spec):
@@ -69,6 +80,8 @@ def from_reference(params_np, cfg: ModelConfig, device="cuda"):
             raise ValueError(f"leaf {rpath}: shape {arr.shape}, want {want}")
         if group is not None:
             arr = arr[group]
+        if path in cuts:
+            arr = cuts[path].slice(arr)
         return _to_tensor(arr, spec.dtype, device)
 
     out = tree_map_with_path(convert, build(cfg).param_specs, is_axspec)
@@ -76,6 +89,42 @@ def from_reference(params_np, cfg: ModelConfig, device="cuda"):
     if extra:
         raise KeyError(f"reference leaves with no port counterpart: {extra}")
     return out
+
+
+def gather_shards(shards, shardings):
+    """The whole param tree from every rank's shard: ``shards[r]`` and
+    ``shardings[r]`` are rank r's (trees of one structure). Each cut dim
+    is concatenated in block order; the replicated ranks' copies must
+    agree bit for bit."""
+    flat = [(dict(tree_leaves_with_path(tree)),
+             dict(tree_leaves_with_path(plan)))
+            for tree, plan in zip(shards, shardings)]
+
+    def whole(path, _):
+        parts = {}
+        for tensors, cuts in flat:
+            key = tuple(None if c is None else c[1]
+                        for c in cuts[path].cuts)
+            t = tensors[path]
+            if key in parts and not torch.equal(parts[key], t):
+                raise ValueError(f"leaf {path}: replicas of block {key} "
+                                 f"differ")
+            parts[key] = t
+        return _assemble(parts)
+    return tree_map_with_path(whole, shards[0])
+
+
+def _assemble(parts: dict):
+    """Blocks keyed by their index along each dim (None: whole) -> one
+    tensor, concatenated along the first cut dim, then recursively."""
+    key = next(iter(parts))
+    dim = next((d for d, i in enumerate(key) if i is not None), None)
+    if dim is None:
+        return parts[key]
+    blocks = sorted({k[dim] for k in parts})
+    return torch.cat([_assemble({k[:dim] + (None,) + k[dim + 1:]: v
+                                 for k, v in parts.items() if k[dim] == b})
+                      for b in blocks], dim=dim)
 
 
 # cache leaf names of each layer kind; None: int8 or bf16, by the layer

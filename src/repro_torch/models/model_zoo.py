@@ -25,9 +25,12 @@ class Model:
     active_param_count: int
 
     # -- params ---------------------------------------------------------
-    def init(self, generator: torch.Generator, device="cuda"):
-        """Random params on ``device``; ``"meta"`` allocates nothing."""
-        return init_params(self.param_specs, generator, device)
+    def init(self, generator: torch.Generator, device="cuda",
+             shardings=None):
+        """Random params on ``device``; ``"meta"`` allocates nothing.
+        ``shardings`` (``Engine.params_sharding``) keeps this rank's
+        slice of each leaf as it is drawn."""
+        return init_params(self.param_specs, generator, device, shardings)
 
     @property
     def n_params(self) -> int:

@@ -14,10 +14,26 @@ or picked by token count under "auto"):
                 reference's ``jax.lax.ragged_dot``, which has no PyTorch
                 counterpart), no capacity drops.
 
-The reference cuts the scatter dispatch into one group per data-parallel
-shard of its mesh (``_dp_groups``, ``_shmap_over_groups``); without a mesh
-that is one group, the only case the port runs (a data axis larger than 1
-is ROADMAP Queue 1 #4.1).
+Over a data axis the reference's answer is the port's. The scatter
+dispatch runs one group per data shard where the reference's rule
+(``_dp_groups``) makes one: when the tokens of the whole batch divide
+into the shards with at least 4k each, each group with its own capacity.
+A rank whose rows are one data shard (``dist.context.current_rows``) then
+dispatches its own group alone; a rank holding the whole batch runs every
+group. Where the rule falls back to one group, and for "einsum", the
+capacity and slot priorities span every token of the batch, so a rank
+holding one shard gathers the hidden states over the data axes
+(``dist.collectives.data_gather``), dispatches them all and keeps its own
+rows. "ragged" drops nothing and each token's output is its own: it runs
+on the rank's rows as they are. "auto" picks by the whole batch's tokens.
+
+Under a "model" axis the planner cuts the experts ("experts" is the first
+TP candidate) or, where the axis does not divide them, each expert's
+d_ff, and the shared expert's d_ff. The router's logits over an expert
+block are gathered over "model" before top-k, so every rank routes alike;
+each rank runs its experts' slots (or its d_ff block of every expert) and
+the partial outputs are summed over "model", the shared expert's with
+them.
 
 Capacity drops depend on every token of the call: a decode round carries
 all of the batcher's slots, so under "einsum" and "scatter" a row's output
@@ -28,10 +44,13 @@ behind a sigmoid gate. ``moe_apply`` returns (y, {"lb_loss": scalar}).
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives
+from repro_torch.dist import context as dctx
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models.common import (AxSpec, ModelConfig, MoEConfig,
                                        act_fn, softcap)
@@ -65,8 +84,12 @@ def capacity(mc: MoEConfig, n_tokens: int) -> int:
 
 def _route(mc: MoEConfig, p, xt):
     """Shared router: (gate_vals (T,k) fp32, gate_idx (T,k) int64,
-    probs (T,E) fp32)."""
-    logits = softcap(xt.float() @ p["router"], mc.router_softcap)
+    probs (T,E) fp32). A router holding a block of the experts gathers
+    its logits over "model" first."""
+    logits = xt.float() @ p["router"]
+    if logits.shape[-1] < mc.num_experts:
+        logits = collectives.model_gather(logits, dim=-1)
+    logits = softcap(logits, mc.router_softcap)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = torch.topk(probs, mc.top_k, dim=-1)
     gate_vals = gate_vals / torch.clamp_min(
@@ -96,8 +119,17 @@ def _positions_in_expert(mc: MoEConfig, gate_idx, c: int):
     return torch.stack(pos_all, 1), torch.stack(keep_all, 1)
 
 
+def _experts(mc: MoEConfig, p) -> Tuple[int, int]:
+    """(first expert, experts) whose weights this rank holds."""
+    el = p["w1"].shape[0]
+    if el == mc.num_experts:
+        return 0, el
+    return dctx.get_mesh().coord("model") * el, el
+
+
 def _expert_mlp(cfg: ModelConfig, p, x, dtype):
-    """x: (E,C,D) -> (E,C,D), each expert's MLP on its own slots."""
+    """x: (El,C,D) -> (El,C,D), each of this rank's experts' MLP on its
+    own slots (a d_ff block of it under a d_ff cut: partial outputs)."""
     act = act_fn(cfg.act)
     h = act(torch.bmm(x, p["w1"].to(dtype)))
     if "w3" in p:
@@ -126,9 +158,12 @@ def _apply_einsum(cfg, mc, p, xt, gate_vals, gate_idx):
         dispatch = dispatch + slot.to(xt.dtype)
         combine = combine + slot * gate_vals[:, j][:, None, None]
         counts = counts + oh.sum(0)
+    lo, el = _experts(mc, p)
+    dispatch = dispatch[:, lo:lo + el]
     expert_in = torch.einsum("tec,td->ecd", dispatch, xt)
     expert_out = _expert_mlp(cfg, p, expert_in, xt.dtype)
-    return torch.einsum("tec,ecd->td", combine.to(xt.dtype), expert_out)
+    return torch.einsum("tec,ecd->td",
+                        combine[:, lo:lo + el].to(xt.dtype), expert_out)
 
 
 def _apply_scatter(cfg, mc, p, xt, gate_vals, gate_idx):
@@ -144,10 +179,12 @@ def _apply_scatter(cfg, mc, p, xt, gate_vals, gate_idx):
     buf = torch.zeros((e * c + 1, d), dtype=xt.dtype, device=xt.device)
     buf.index_copy_(0, slot.reshape(-1),
                     xt[:, None].expand(t, k, d).reshape(t * k, d))
-    expert_out = _expert_mlp(cfg, p, buf[:e * c].reshape(e, c, d), xt.dtype)
-    padded = torch.cat([expert_out.reshape(e * c, d),
-                        torch.zeros((1, d), dtype=xt.dtype,
-                                    device=xt.device)])
+    lo, el = _experts(mc, p)
+    expert_out = _expert_mlp(
+        cfg, p, buf[lo * c:(lo + el) * c].reshape(el, c, d), xt.dtype)
+    # other ranks' experts' slots read zeros here: their share of the sum
+    padded = torch.zeros((e * c + 1, d), dtype=xt.dtype, device=xt.device)
+    padded[lo * c:(lo + el) * c] = expert_out.reshape(el * c, d)
     gathered = padded[slot.reshape(-1)].reshape(t, k, d)
     w = (gate_vals * keep).to(xt.dtype)
     return torch.einsum("tkd,tk->td", gathered, w)
@@ -163,15 +200,16 @@ def _apply_ragged(cfg, mc, p, xt, gate_vals, gate_idx):
     tok_of = order // k
     xs = xt[tok_of]  # (T*k, D) sorted by expert
     sizes = torch.bincount(flat_e, minlength=e).tolist()
-    ys = torch.empty_like(xs)
+    lo, el = _experts(mc, p)
+    ys = torch.zeros_like(xs)  # other ranks' experts' segments stay 0
     start = 0
     for ex, n in enumerate(sizes):
-        if n:
+        if n and lo <= ex < lo + el:
             seg = xs[start:start + n]
-            h = act(seg @ p["w1"][ex].to(xt.dtype))
+            h = act(seg @ p["w1"][ex - lo].to(xt.dtype))
             if "w3" in p:
-                h = h * (seg @ p["w3"][ex].to(xt.dtype))
-            ys[start:start + n] = h @ p["w2"][ex].to(xt.dtype)
+                h = h * (seg @ p["w3"][ex - lo].to(xt.dtype))
+            ys[start:start + n] = h @ p["w2"][ex - lo].to(xt.dtype)
         start += n
     gates_sorted = gate_vals.reshape(-1)[order].to(xt.dtype)
     y = torch.zeros((t, d), dtype=xt.dtype, device=xt.device)
@@ -182,18 +220,65 @@ _IMPLS = {"einsum": _apply_einsum, "scatter": _apply_scatter,
           "ragged": _apply_ragged}
 
 
+def _dp_groups(t: int, k: int) -> int:
+    """Dispatch groups of a ``t``-token batch: one per data shard of the
+    ambient mesh when the shards divide the tokens with at least 4k each,
+    else one (the reference's rule)."""
+    g = dctx.dp_size()
+    if g <= 1 or t % g or (t // g) < 4 * k:
+        return 1
+    return g
+
+
+def _routed_split(mc: MoEConfig, p) -> bool:
+    """Whether the routed experts' output is a partial sum over "model"
+    (an expert or a d_ff block a rank)."""
+    e, _, f = p["w1"].shape
+    return e < mc.num_experts or f < mc.expert_ff
+
+
 def moe_apply(cfg: ModelConfig, mc: MoEConfig, p, x, impl: str = "auto"):
-    """x: (B,S,D) or (T,D). Returns (y, {"lb_loss": scalar})."""
+    """x: (B,S,D) or (T,D). Returns (y, {"lb_loss": scalar}); under a
+    data axis the loss is over the tokens this rank routed."""
     orig_shape = x.shape
     xt = x.reshape(-1, orig_shape[-1])
+    shards, index = dctx.current_rows()
+    t_local = xt.shape[0]
+    t = t_local * shards  # the whole batch's tokens
     if impl == "auto":
-        impl = "einsum" if xt.shape[0] <= EINSUM_MAX_TOKENS else "scatter"
+        impl = "einsum" if t <= EINSUM_MAX_TOKENS else "scatter"
     if impl not in _IMPLS:
         raise ValueError(f"unknown moe impl {impl!r}")
+    groups = _dp_groups(t, mc.top_k) if impl == "scatter" else 1
+    gather = shards > 1 and impl != "ragged" and groups != shards
+    if gather:  # capacity over every token of the batch
+        xt = collectives.data_gather(xt)
+    elif shards > 1 and impl == "scatter":
+        groups = 1  # this rank's rows are its own group
     gate_vals, gate_idx, probs = _route(mc, p, xt)
-    y = _IMPLS[impl](cfg, mc, p, xt, gate_vals, gate_idx)
+    # ``groups`` equal, consecutive groups, each with its own capacity
+    y = torch.cat([_IMPLS[impl](cfg, mc, p, *parts) for parts in zip(
+        xt.chunk(groups), gate_vals.chunk(groups), gate_idx.chunk(groups))])
+    if gather:  # keep this rank's rows
+        rows = slice(index * t_local, (index + 1) * t_local)
+        y, xt = y[rows], xt[rows]
+    # partial sums over "model" are summed once, whole terms added after
+    partial, whole = (y, None) if _routed_split(mc, p) else (None, y)
     if "shared" in p:
-        sh = mlp_lib.mlp_apply(cfg, p["shared"], xt)
+        shared_ff = mc.shared_ff or mc.expert_ff * mc.num_shared
         g = torch.sigmoid(xt.float() @ p["shared_gate"])
-        y = y + sh * g.to(sh.dtype)
-    return y.reshape(orig_shape), {"lb_loss": _lb_loss(mc, gate_idx, probs)}
+        sh = mlp_lib.mlp_apply(cfg, p["shared"], xt, d_ff=shared_ff,
+                               reduce=False)
+        sh = sh * g.to(sh.dtype)
+        if p["shared"]["w1"].shape[1] < shared_ff:
+            partial = sh if partial is None else partial + sh
+            if "b2" in p["shared"]:
+                bias = p["shared"]["b2"].to(sh.dtype) * g.to(sh.dtype)
+                whole = bias if whole is None else whole + bias
+        else:
+            whole = whole + sh if whole is not None else sh
+    if partial is not None:
+        part = collectives.model_sum(partial)
+        whole = part if whole is None else whole + part
+    return whole.reshape(orig_shape), {"lb_loss": _lb_loss(mc, gate_idx,
+                                                           probs)}

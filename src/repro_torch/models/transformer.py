@@ -51,6 +51,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.dist import collectives
+from repro_torch.dist import context as dctx
 from repro_torch.kernels.decode_attention.quant import (KV_DTYPES,
                                                         quantize_kv)
 from repro_torch.models import attention as attn_lib
@@ -191,28 +193,52 @@ def _maybe_remat(fn, run: RunConfig):
 # ---------------------------------------------------------------------------
 
 
+def vocab_lookup(table, ids, n_rows: int):
+    """``table[ids]`` for a table of ``n_rows`` rows of which this rank may
+    hold one block over "model" (the vocab-parallel embedding): ids
+    outside the block look up zeros and the blocks' lookups are summed
+    over "model", which is exact (one term is non-zero)."""
+    ids = ids.long()
+    rows = table.shape[0]
+    if rows == n_rows:
+        return table[ids]
+    lo = dctx.get_mesh().coord("model") * rows
+    local = ids - lo
+    inside = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)] * inside[..., None].to(table.dtype)
+    return collectives.model_sum(x)
+
+
 def _embed_in(cfg: ModelConfig, params, tokens=None, embeddings=None,
               positions=None):
     if embeddings is not None:
         x = embeddings.to(torch.bfloat16)
     else:
-        x = params["embed"].to(torch.bfloat16)[tokens.long()]
+        x = vocab_lookup(params["embed"].to(torch.bfloat16), tokens,
+                         cfg.vocab_size)
     if cfg.emb_scale:
         x = x * torch.tensor(math.sqrt(float(cfg.d_model)),
                              dtype=torch.float32).to(x.dtype)
     if cfg.pos == "learned":
-        x = x + params["pos_embed"][positions].to(x.dtype)
+        x = x + vocab_lookup(params["pos_embed"], positions,
+                             cfg.max_position).to(x.dtype)
     return x
 
 
 def _lm_head(cfg: ModelConfig, params, x):
+    """Logits (fp32). A vocab-split head's blocks (each softcapped: the
+    cap is elementwise) are gathered over "model" into the whole
+    vocabulary."""
     if cfg.num_labels:
         return (x @ params["cls_head"].to(x.dtype)).float()
     if cfg.tie_embeddings:
         logits = x @ params["embed"].to(x.dtype).T
     else:
         logits = x @ params["lm_head"].to(x.dtype)
-    return softcap(logits.float(), cfg.final_softcap)
+    logits = softcap(logits.float(), cfg.final_softcap)
+    if logits.shape[-1] < cfg.vocab_size:
+        logits = collectives.model_gather(logits, dim=-1)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -265,12 +291,15 @@ class Cache:
     ``seq_shards`` is the number of blocks the sequence dim is cut into
     over the mesh's "model" axis: with M > 1 the KV leaves hold this
     rank's positions [r * T / M, (r + 1) * T / M) (T the whole cache's
-    capacity) and ``lengths`` stay global.
+    capacity) and ``lengths`` stay global. ``row_shards`` is the number
+    of blocks the batch's rows are cut into over the data axes: with D >
+    1 every leaf, ``lengths`` too, holds this rank's B / D rows.
     """
 
     layers: tuple  # per layer: {"k", "v"[, scales]} or the SSM leaves
     lengths: torch.Tensor  # (B,) int32
     seq_shards: int = 1
+    row_shards: int = 1
 
     def tensors(self):
         """Every tensor of the cache: each layer's leaves, then lengths."""

@@ -11,8 +11,8 @@ spawning replica N hits the buckets replica 1 made and
 
 The reference's second placement, ``mesh_slices=n`` (each replica its
 own ``Engine`` on a disjoint slice of the device mesh), needs
-``Engine.for_mesh`` and ``dist.sharding.slice_meshes``, which the port
-does not have yet: ``ReplicaPool(mesh_slices=...)`` raises
+``Engine.for_mesh`` over ``dist.sharding.slice_meshes``' sub-meshes,
+which the port does not have yet: ``ReplicaPool(mesh_slices=...)`` raises
 ``NotImplementedError`` (ROADMAP Queue 1 #4.3).
 
 Elasticity semantics (what the policies drive through ``scale_to``):
@@ -160,9 +160,10 @@ class ReplicaPool:
         self.profile = profile
         if mesh_slices:
             raise NotImplementedError(
-                "ReplicaPool(mesh_slices=...) needs Engine.for_mesh and "
-                "dist.sharding.slice_meshes, which the port does not have "
-                "yet (ROADMAP Queue 1 #4.3); replicas share one engine")
+                "ReplicaPool(mesh_slices=...) needs Engine.for_mesh on "
+                "the sub-meshes of dist.sharding.slice_meshes, which the "
+                "port does not have yet (ROADMAP Queue 1 #4.3); replicas "
+                "share one engine")
         self.replicas: List[Replica] = []   # every replica ever (billing)
         self.n_spawns = 0
         self.n_crashes = 0

@@ -1,10 +1,16 @@
 """Continuous batching: slot-based admission over a SHARED batched cache.
 
 Counterpart of ``repro.serving.batching``, on one device or, through a
-mesh-aware ``Engine(mesh=, seq_shard=True)``, on every rank of a
-sequence-sharded mesh: each rank runs the same batcher over its own block
-of the shared cache and takes the same decisions, since the merged
-logits, and so the tokens, are the same on every rank. A fixed
+mesh-aware ``Engine(mesh=...)``, on every rank of a mesh: each rank runs
+the same batcher on the same requests (admission, eviction, rounds) over
+its own part of the shared cache (its rows over the data axes, its kv
+heads or sequence block over "model") and takes the same decisions,
+since the engine hands every rank the whole batch's logits or tokens:
+an admission prefills on the ranks that own the slot's row and its first
+token is broadcast from them, and a decode round's tokens are gathered
+over the data axes. Ranks whose host state parted would block in a
+collective, so every spawn of ranks carries a timeout
+(``launch.mesh.spawn_ranks``). A fixed
 number of decode slots map onto the rows of ONE batched KV cache; the
 cache's per-row ``lengths`` make the batch ragged, so each scheduling
 round issues exactly **one** ``Engine.decode`` call however many slots

@@ -6,19 +6,44 @@ device half of continuous batching (``serving/batching.py``).
 
 Mesh-aware, as the reference: constructed with a ``mesh``
 (``launch.mesh.make_host_mesh``, one process per rank) every entry point
-runs under ``dist.mesh_context(mesh)``; ``seq_shard=True`` forces
-``attn_impl="seq_shard"`` and every dense cache the engine allocates
-holds this rank's block of the sequence dim (``dist.sharding.seq_blocks``),
-so decode attention merges the ranks' partials (``dist.collectives``) and
-the cache never gathers. Every rank holds the params whole and computes
-the whole logits: tensor-parallel params, and with them a "model" axis
-without ``seq_shard``, wait for a later slice, as does a "data" axis
-larger than 1 (both raise ``NotImplementedError``: ROADMAP Queue 1 #4.2,
-tensor-parallel params, and #4.1, a data axis larger than 1).
-The reference's guards hold under a mesh: int8 KV raises and paged caches
-raise. Fused sampling runs the sampling kernel under a mesh too: the
-reference takes its plain epilogue there only because its logits arrive
-split over the vocabulary, which the port's never are.
+runs under ``dist.mesh_context(mesh)`` and the params are laid out by the
+reference's planner (``strategy``, auto-picked with ``kind="infer"``;
+``params_sharding`` is this rank's slice of every leaf and
+:meth:`shard_params` cuts it):
+
+  * "model" axis under "tp": the Megatron split (``models.attention``,
+    ``models.mlp``, ``models.moe``, ``models.transformer``): each rank
+    computes its heads, d_ff block, experts and vocabulary block, and the
+    partial sums and split logits are combined over "model"
+    (``dist.collectives``). Caches hold the rank's kv heads where the
+    planner cuts them (``dist.sharding.cache_shardings``).
+  * data axes: every rank takes the whole batch's inputs and computes
+    only its rows (the batch cut into D equal blocks where D divides it,
+    else whole on every rank, as ``input_shardings``), and every rank
+    returns the whole batch's logits or tokens, gathered over the data
+    axes. A shared cache holds only the rank's rows (``Cache.row_shards``):
+    an admission prefills on the ranks that own its row, which broadcast
+    the logits or token to the rest; an eviction touches the owners'
+    cache alone.
+  * ``seq_shard=True`` forces ``attn_impl="seq_shard"``: every dense
+    cache holds this rank's block of the sequence dim
+    (``dist.sharding.seq_blocks``), decode attention merges the ranks'
+    partials (``dist.collectives``) and the cache never gathers. The
+    params stay whole over "model" there (rows may still be cut over a
+    data axis).
+
+Sampling under a data axis draws the whole batch's noise from the shared
+generator on every rank and uses its rows' slice, so the streams equal
+one rank's; the sampling kernel runs on the local rows. Under a
+vocab-split "model" axis the LM head gathers the logits whole
+(``models.transformer``), so the sampling kernel runs there too.
+
+These still raise, each naming its ROADMAP item: the "fsdp" and
+"fsdp_tp" layouts that cut params over the data axes (training layouts),
+SSM layers under a "model" axis, encoder-decoder models under a mesh of
+more than one rank, and rows cut over more than one data axis. The reference's guards hold too: int8 KV
+raises under a mesh and paged caches raise (the batcher keeps the dense
+cache).
 
 The shared-batched-cache admission path (``new_cache`` -> ``prefill_into``
 -> ``decode`` -> ``free_row``) serves continuous batching: one
@@ -48,15 +73,18 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist import collectives
 from repro_torch.dist import context as dctx
 from repro_torch.dist import sharding as shd
-from repro_torch.kernels.decode_attention.fused_sampling import fused_sample
+from repro_torch.kernels.decode_attention.fused_sampling import (
+    fused_sample, gumbel_noise)
 from repro_torch.kernels.decode_attention.quant import KV_DTYPES
+from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import RunConfig
 from repro_torch.models.model_zoo import Model
 from repro_torch.models.transformer import Cache, PagedCache
 from repro_torch.serving.sampler import sample
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_map_multi
 
 
 def _leaf_key(x) -> tuple:
@@ -76,13 +104,20 @@ def _shape_key(tree) -> tuple:
     if isinstance(tree, (Cache, PagedCache)):
         head = (("PagedCache", tree.page_size)
                 if isinstance(tree, PagedCache)
-                else ("Cache", tree.seq_shards))
+                else ("Cache", tree.seq_shards, tree.row_shards))
         names = tuple(tuple(layer) for layer in tree.layers)
         return head + (names,) + tuple(_leaf_key(t)
                                        for t in tree.tensors())
     if isinstance(tree, dict):
         return tuple((k, _shape_key(v)) for k, v in sorted(tree.items()))
     return _leaf_key(tree)
+
+
+def _cut(t: torch.Tensor, sharding, device) -> torch.Tensor:
+    """This rank's slice of ``t`` on ``device``, a tensor of its own."""
+    if sharding.replicated:
+        return t.to(device)
+    return sharding.slice(t).to(device, copy=True)
 
 
 def _check_prompt(s: int, max_len: int):
@@ -94,20 +129,51 @@ def _check_prompt(s: int, max_len: int):
             f"{max_len} — allocate new_cache with a larger max_len")
 
 
-def _check_mesh(mesh, seq_shard: bool):
-    """The layouts this slice serves: "model" with ``seq_shard``, and no
-    data axis larger than 1."""
-    for axis in dctx.dp_axes(mesh):
-        if dctx.axis_size(axis, mesh) > 1:
-            raise NotImplementedError(
-                f"a {axis!r} axis of {dctx.axis_size(axis, mesh)} ranks "
-                f"(batch-sharded rows across ranks) is not ported yet "
-                f"(ROADMAP.md Queue 1 #4.1, a data axis larger than 1)")
-    if dctx.axis_size("model", mesh) > 1 and not seq_shard:
+def _check_mesh(model: Model, mesh, seq_shard: bool, strategy: str,
+                specs) -> None:
+    """The layouts the port serves: a "model" axis under "tp" or with
+    ``seq_shard``, and data axes; the rest raise, naming their ROADMAP
+    item."""
+    cfg = model.cfg
+    if strategy not in ("tp", "fsdp", "fsdp_tp"):
+        raise ValueError(f"unknown strategy {strategy!r}")
+    data = set(dctx.dp_axes(mesh))
+    if strategy == "fsdp" or any(
+            a in data for spec in tree_leaves(specs, _is_spec)
+            for e in spec if e is not None
+            for a in (e if isinstance(e, tuple) else (e,))):
         raise NotImplementedError(
-            "a 'model' axis without seq_shard needs tensor-parallel params "
-            "and kv-head-sharded caches, not ported yet (ROADMAP.md Queue 1 "
-            "#4.2, tensor-parallel params); serve it with seq_shard=True")
+            f"strategy {strategy!r} cuts params over every axis or over "
+            f"the data axes, a training layout the port does not serve "
+            f"(ROADMAP.md Queue 1 #4.2, the training layouts "
+            f"'fsdp'/'fsdp_tp')")
+    if int(mesh.devices.size) > 1 and cfg.encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder layers under a mesh of more than "
+            f"one rank are not ported yet (ROADMAP.md Queue 1 #4.5, SSM "
+            f"and encoder-decoder layers under 'model')")
+    if sum(dctx.axis_size(a, mesh) > 1 for a in data) > 1:
+        raise NotImplementedError(
+            f"{dict(mesh.shape)}: rows cut over more than one data axis "
+            f"are not served yet (ROADMAP.md Queue 1 #4.4, "
+            f"make_production_mesh)")
+    m = dctx.axis_size("model", mesh)
+    if m > 1 and not seq_shard and cfg.has_mixer("ssm"):
+        raise NotImplementedError(
+            f"{cfg.name}: SSM layers under a 'model' axis are not ported "
+            f"yet (ROADMAP.md Queue 1 #4.5, SSM and encoder-decoder "
+            f"layers under 'model')")
+    if m > 1 and not seq_shard and cfg.has_mixer("attn"):
+        # q heads cut over "model", kv heads whole: each block of q heads
+        # must attend whole kv heads in one uniform group
+        attn = next(b["attn"] for b in specs["blocks"] if "attn" in b)
+        if attn["wq"][1] == "model" and attn["wk"][1] is None:
+            for index in range(m):
+                attn_lib.kv_group(cfg, cfg.n_heads // m, index)
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, shd.PartitionSpec)
 
 
 @dataclasses.dataclass
@@ -129,6 +195,9 @@ class Engine:
         entry point runs under ``dist.mesh_context(mesh)``.
       seq_shard: cut the KV cache's SEQUENCE dim over the "model" axis
         (the layout ``dist.collectives.seq_sharded_*`` consumes).
+      strategy: the planner's param layout ("tp"; "fsdp" and "fsdp_tp"
+        raise where they cut params over the data axes); default
+        ``dist.sharding.pick_strategy(kind="infer")``.
     """
 
     model: Model
@@ -136,6 +205,7 @@ class Engine:
     device: Any = "cuda"
     mesh: Optional[dctx.Mesh] = None
     seq_shard: bool = False
+    strategy: Optional[str] = None
 
     def __post_init__(self):
         if self.run.kv_dtype not in KV_DTYPES:
@@ -151,8 +221,22 @@ class Engine:
                 raise ValueError(
                     "encoder-decoder models have no int8 KV layout "
                     "(cross-attn caches stay bf16)")
+        self.params_sharding = None
         if self.mesh is not None:
-            _check_mesh(self.mesh, self.seq_shard)
+            specs = self.model.param_specs
+            if self.strategy is None:
+                self.strategy = shd.pick_strategy(specs, self.mesh,
+                                                  kind="infer")
+            plan = shd.param_specs_tree(specs, self.strategy, self.mesh)
+            _check_mesh(self.model, self.mesh, self.seq_shard,
+                        self.strategy, plan)
+            if self.seq_shard:  # params whole over "model" beside the
+                # sequence-sharded cache
+                plan = tree_map(lambda p: shd.drop_axis(p, "model"), plan,
+                                is_leaf=_is_spec)
+            self.params_sharding = tree_map(
+                lambda p: shd.rank_sharding(p, self.mesh), plan,
+                is_leaf=_is_spec)
             if self.seq_shard and self.run.attn_impl != "seq_shard":
                 self.run = dataclasses.replace(self.run,
                                                attn_impl="seq_shard")
@@ -161,7 +245,8 @@ class Engine:
         self.compile_count = 0
 
     def place_params(self, params):
-        """``params`` moved onto the engine's device."""
+        """``params`` moved onto the engine's device (under a mesh: this
+        rank's shard, as :meth:`shard_params` made it)."""
         return tree_map(lambda t: t.to(self.device), params)
 
     # ------------------------------------------------------------------
@@ -174,9 +259,63 @@ class Engine:
                 else nullcontext())
 
     def shard_params(self, params):
-        """``params`` placed for this rank: on the engine's device, whole
-        (no tensor-parallel layout yet)."""
-        return self.place_params(params)
+        """This rank's shard of the whole ``params`` on the engine's
+        device: each leaf cut by ``params_sharding`` (whole without a
+        mesh), a copy that holds only the slice."""
+        if self.mesh is None:
+            return self.place_params(params)
+        return tree_map_multi(lambda t, sh: _cut(t, sh, self.device), params,
+                              self.params_sharding)
+
+    def agree(self, seconds: float) -> float:
+        """The largest of every rank's ``seconds`` (``seconds`` itself
+        off a multi-rank mesh): host decisions that read a measured time,
+        such as an orchestrator's speculation, then take the same branch
+        on every rank, as their collectives need."""
+        if self.mesh is None or int(self.mesh.devices.size) <= 1:
+            return seconds
+        t = torch.tensor([float(seconds)], dtype=torch.float64,
+                         device=self.device)
+        if torch.distributed.get_backend() == "gloo":
+            t = t.cpu()
+        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+        return float(t[0])
+
+    # -- the batch's rows over the data axes ---------------------------
+
+    def _rows(self, x) -> Tuple[int, int]:
+        """(blocks, this rank's block) of batch ``x``'s rows as
+        ``dist.sharding.input_shardings`` cuts dim 0: D equal blocks over
+        the data axes where D divides the rows, else (1, 0), every rank
+        computing every row."""
+        if self.mesh is None:
+            return 1, 0
+        cut = shd.rank_sharding(shd.input_shardings(x, self.mesh),
+                                self.mesh).cuts[0]
+        return (1, 0) if cut is None else (cut[2], cut[1])
+
+    @staticmethod
+    def _block(x, n: int, i: int):
+        if n == 1:
+            return x
+        bl = x.shape[0] // n
+        return x[i * bl:(i + 1) * bl]
+
+    @staticmethod
+    def _whole(x, n: int):
+        """Every data shard's rows of ``x``, gathered (``x`` when
+        whole)."""
+        return x if n == 1 else collectives.data_gather(x)
+
+    def _sample(self, logits, generator, b: int, n: int, i: int, kw: dict):
+        """The fused epilogue on this rank's rows of a ``b``-row batch:
+        the whole batch's noise is drawn (every rank's generator stays in
+        step) and the rows' slice used."""
+        noise = None
+        if kw["temperature"] > 0.0 and n > 1:
+            noise = self._block(gumbel_noise(
+                (b, logits.shape[-1]), generator, logits.device), n, i)
+        return fused_sample(logits, generator, noise=noise, **kw)
 
     def _seq_block(self, max_len: int) -> Tuple[int, int]:
         """(blocks the sequence of a ``max_len`` cache is cut into, this
@@ -217,27 +356,41 @@ class Engine:
 
     def _classify_fn(self):
         def _classify(params, tokens):
-            logits, _ = self.model.forward(self.run, params,
-                                           {"tokens": tokens})
-            return logits
+            n, i = self._rows(tokens)
+            with dctx.row_shard(n, i):
+                logits, _ = self.model.forward(
+                    self.run, params, {"tokens": self._block(tokens, n, i)})
+            return self._whole(logits, n)
         return _classify
 
     def _prefill_fn(self, max_len: int):
         shards, shard = self._seq_block(max_len)
 
         def _prefill(params, batch):
-            return self.model.prefill(self.run, params, batch,
-                                      max_len=max_len, seq_shards=shards,
-                                      shard=shard)
+            n, i = self._rows(batch["tokens"])
+            with dctx.row_shard(n, i):
+                logits, cache = self.model.prefill(
+                    self.run, params,
+                    {k: self._block(v, n, i) for k, v in batch.items()},
+                    max_len=max_len, seq_shards=shards, shard=shard)
+            if isinstance(cache, Cache):
+                cache.row_shards = n
+            return self._whole(logits, n), cache
         return _prefill
 
     def _decode_fn(self, sample_kw: Optional[dict] = None):
         def _decode(params, cache, token, generator=None):
-            logits, cache = self.model.decode_step(self.run, params, cache,
-                                                   {"token": token})
+            n = getattr(cache, "row_shards", 1)
+            i = dctx.dp_index(self.mesh) if n > 1 else 0
+            with dctx.row_shard(n, i):
+                logits, cache = self.model.decode_step(
+                    self.run, params, cache,
+                    {"token": self._block(token, n, i)})
             if sample_kw is not None:  # fused epilogue: (B,) tokens out
-                return fused_sample(logits, generator, **sample_kw), cache
-            return logits, cache
+                toks = self._sample(logits, generator, token.shape[0], n, i,
+                                    sample_kw)
+                return self._whole(toks, n), cache
+            return self._whole(logits, n), cache
         return _decode
 
     def _prefill_into_fn(self, cache: Cache, max_len: int,
@@ -247,20 +400,34 @@ class Engine:
         if shards > 1:  # a rank's block of the whole capacity: prefill it
             max_len = cache.kv_capacity()
             shards, shard = self._seq_block(max_len)
+        vocab = self.model.cfg.vocab_size
 
         def _prefill_into(params, cache, batch, row, generator=None):
-            logits, small = self.model.prefill(self.run, params, batch,
-                                               max_len=max_len,
-                                               seq_shards=shards,
-                                               shard=shard)
-            # KV rows (the prompt's positions) and SSM state rows (whole)
-            for big, sm in zip(cache.layers, small.layers):
-                for name, t in sm.items():
-                    big[name][row, :t.shape[1]].copy_(t[0])
-            cache.lengths[row] = small.lengths[0]
-            if sample_kw is not None:  # fused epilogue: (1,) token out
-                return fused_sample(logits, generator, **sample_kw), cache
-            return logits, cache
+            # the row's owner: the data shard whose block holds it
+            n, rows = cache.row_shards, cache.lengths.shape[0]
+            owner, row = divmod(row, rows) if n > 1 else (0, row)
+            if n == 1 or owner == dctx.dp_index(self.mesh):
+                with dctx.row_shard(1, 0):
+                    logits, small = self.model.prefill(
+                        self.run, params, batch, max_len=max_len,
+                        seq_shards=shards, shard=shard)
+                # KV rows (the prompt's positions), SSM state rows (whole)
+                for big, sm in zip(cache.layers, small.layers):
+                    for name, t in sm.items():
+                        big[name][row, :t.shape[1]].copy_(t[0])
+                cache.lengths[row] = small.lengths[0]
+                out = (logits if sample_kw is None else self._sample(
+                    logits, generator, 1, 1, 0, sample_kw))
+            else:  # another shard's row: keep the generator in step
+                if sample_kw is not None and sample_kw["temperature"] > 0:
+                    gumbel_noise((1, vocab), generator, self.device)
+                out = (torch.empty((1, vocab), dtype=torch.float32,
+                                   device=self.device) if sample_kw is None
+                       else torch.empty((1,), dtype=torch.int32,
+                                        device=self.device))
+            if n > 1:
+                out = collectives.data_broadcast(out, owner)
+            return out, cache
         return _prefill_into
 
     # ------------------------------------------------------------------
@@ -330,21 +497,33 @@ class Engine:
             raise ValueError(
                 f"new_cache needs positive batch/max_len, got "
                 f"batch={batch} max_len={max_len}")
-        shards = self._seq_block(max_len)[0]
-
-        def alloc():
+        if self.mesh is None:
             return self.model.init_cache(batch, max_len,
                                          kv_dtype=self.run.kv_dtype,
-                                         device=self.device,
-                                         seq_shards=shards)
-        if self.mesh is None:
-            return alloc()
+                                         device=self.device)
         # under a mesh the reference allocates through a pinned executable:
         # one more shape bucket, counted as it counts it
-        specs = self.model.cache_specs(batch, max_len, self.run.kv_dtype,
-                                       seq_shards=shards)
+        specs = self.model.cache_specs(batch, max_len, self.run.kv_dtype)
         return self._get_exec("new_cache", _shape_key(specs),
-                              lambda: alloc)()
+                              lambda: lambda: self._alloc_cache(specs))()
+
+    def _alloc_cache(self, specs: Cache) -> Cache:
+        """Zeros of this rank's slice of every leaf of the whole cache
+        ``specs`` (meta tensors), as ``dist.sharding.cache_shardings``
+        lays it out."""
+        plan = shd.cache_shardings(specs, self.model.cfg, self.mesh,
+                                   seq_shard=self.seq_shard)
+
+        def zeros(t, spec):
+            shape = shd.rank_sharding(spec, self.mesh).local_shape(t.shape)
+            return torch.zeros(shape, dtype=t.dtype, device=self.device)
+        layers = tuple({name: zeros(t, plan.layers[i][name])
+                        for name, t in layer.items()}
+                       for i, layer in enumerate(specs.layers))
+        lengths = zeros(specs.lengths, plan.lengths)
+        return Cache(layers=layers, lengths=lengths,
+                     seq_shards=self._seq_block(specs.kv_capacity() or 0)[0],
+                     row_shards=specs.lengths.shape[0] // lengths.shape[0])
 
     def _row_len(self, cache: Cache, s: int, max_len: Optional[int]) -> int:
         """The prefill length of an admission: ``max_len``, default the
@@ -385,6 +564,11 @@ class Engine:
 
     def _free_fn(self):
         def _free(cache, row):
+            n = getattr(cache, "row_shards", 1)
+            if n > 1:  # only the row's owner holds it
+                owner, row = divmod(row, cache.lengths.shape[0])
+                if owner != dctx.dp_index(self.mesh):
+                    return cache
             cache.lengths[row] = 0
             if isinstance(cache, PagedCache):
                 # paged eviction also nulls the row's page table, so its
@@ -400,7 +584,8 @@ class Engine:
         admission) and, on a ``PagedCache``, zero its page table. In
         place; returns the cache."""
         fn = self._get_exec("free_row", _shape_key(cache), self._free_fn)
-        return fn(cache, int(row))
+        with self._ctx():
+            return fn(cache, int(row))
 
     # ------------------------------------------------------------------
     # Block-paged shared cache (page-table indirection + prefix sharing)

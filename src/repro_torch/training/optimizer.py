@@ -7,7 +7,7 @@ parameter tree, with the reference's keys: ``m``, ``v``, ``master`` and
 ``step`` for AdamW; ``factored`` and ``step`` for Adafactor. Updates are
 functional: they return new params and a new state and write nothing in
 place. ``state_specs`` (the ZeRO-3 layout over a "data" axis) waits for
-tensor-parallel params (ROADMAP Queue 1 #4.2, tensor-parallel params).
+the training layouts (ROADMAP Queue 1 #4.2, "fsdp"/"fsdp_tp").
 """
 from __future__ import annotations
 

@@ -15,6 +15,7 @@
   the same on every rank and equal the one-rank engine's under
   ``_assert_streams_match``'s near-tie rule.
 """
+import dataclasses
 import json
 import os
 
@@ -29,6 +30,7 @@ from repro import configs as jconfigs
 from repro.dist import sharding as jshd
 from repro.kernels.decode_attention import ref as jref
 from repro.models import build as jbuild
+from repro_torch import configs
 from repro_torch.dist import context as dctx
 from repro_torch.dist import sharding as shd
 from repro_torch.launch.mesh import make_host_mesh, n_chips, spawn_ranks
@@ -81,12 +83,29 @@ def test_mesh_context_and_constrain():
 
 
 def test_unported_layouts_name_their_roadmap_item(qwen):
-    model = build(qwen["cfg"])
-    for shape, seq_shard in (((2, 1), True), ((1, 2), False)):
-        mesh = dctx.Mesh(np.arange(2).reshape(shape), ("data", "model"))
-        with pytest.raises(NotImplementedError, match=r"Queue 1 #4\.[12]"):
-            Engine(model, RunConfig(), device="cpu", mesh=mesh,
-                   seq_shard=seq_shard)
+    """Layouts the port still refuses, each naming its ROADMAP item: the
+    training layout "fsdp_tp" (params cut over the data axis), an SSM
+    model under "model", an encoder-decoder model on several ranks, a
+    GQA layout whose q-head blocks map onto no uniform kv group (6 q
+    heads over 2 kv heads on 3 ranks: 2 a rank, groups of 3), and rows
+    cut over two data axes."""
+    gqa = dataclasses.replace(qwen["cfg"], n_heads=6, n_kv_heads=2,
+                              name="gqa-6-2")
+    cases = [(qwen["cfg"], (2, 1), "fsdp_tp", r"Queue 1 #4\.2, the training"),
+             (configs.smoke("mamba2-130m"), (1, 2), None,
+              r"Queue 1 #4\.5, SSM and encoder-decoder"),
+             (configs.smoke("whisper-base"), (2, 1), None,
+              r"Queue 1 #4\.5, SSM and encoder-decoder"),
+             (gqa, (1, 3), None, r"Queue 3, differences by design")]
+    for cfg, shape, strategy, match in cases:
+        mesh = dctx.Mesh(np.arange(int(np.prod(shape))).reshape(shape),
+                         ("data", "model"))
+        with pytest.raises(NotImplementedError, match=match):
+            Engine(build(cfg), RunConfig(), device="cpu", mesh=mesh,
+                   strategy=strategy)
+    mesh = dctx.Mesh(np.arange(4).reshape(2, 2, 1), ("pod", "data", "model"))
+    with pytest.raises(NotImplementedError, match=r"Queue 1 #4\.4"):
+        Engine(build(qwen["cfg"]), RunConfig(), device="cpu", mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

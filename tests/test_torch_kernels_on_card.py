@@ -36,6 +36,11 @@ GPU_CASES = [
     (1, 100, 100, 8, 2, 64, True, None, None),   # pad path
     (1, 96, 200, 2, 2, 128, False, None, 30.0),  # pad + bidir + cap
     (2, 7, 5, 2, 1, 16, False, None, None),      # tiny: still the kernel
+    # tensor-parallel local heads: qwen2-7b on a "model" axis of 2 and 4
+    # (a GQA group of 7 over one kv head), distilbert-imdb on 2
+    (1, 256, 256, 14, 2, 128, True, None, None),
+    (1, 256, 256, 7, 1, 128, True, None, None),
+    (32, 128, 128, 6, 6, 64, False, None, None),
 ]
 
 
@@ -104,6 +109,10 @@ DECODE_CASES = [
     (3, 8, 8, 64, 300, (10, 299, 150), 128, 30.0),          # MHA, both
     (2, 4, 2, 32, 40, (17, 39), None, None),                # tiny T < 64
     (2, 16, 4, 16, 130, (129, 64), 64, None),               # window
+    # tensor-parallel local heads and one data shard's rows of qwen2-7b
+    (8, 14, 2, 128, 512, (64, 272, 100, 511, 0, 130, 200, 90), None, None),
+    (8, 7, 1, 128, 512, (64, 272, 100, 511, 0, 130, 200, 90), None, None),
+    (4, 28, 4, 128, 512, (64, 272, 100, 511), None, None),
 ]
 
 

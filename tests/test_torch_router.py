@@ -521,10 +521,11 @@ def test_serve_one_rank_seq_shard_mesh_runs():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--router", "--mesh", "1x2", "--seq-shard"], "serve_cluster --ranks"),
-    (["--router", "--mesh", "1x1"], "--seq-shard"),
+    (["--router", "--mesh", "1x2", "--router-arch", "mamba2-130m"],
+     "Queue 1 #4.5, SSM and encoder-decoder"),
+    (["--http", "--mesh", "2x1"], "Queue 1 #4.3"),
     (["--router", "--mesh-slices", "2"], "Queue 1 #4.3"),
-    (["--mesh", "1x1", "--seq-shard"], "--router, --calibrate and --http"),
+    (["--calibrate", "--mesh", "1x2"], "Queue 1 #4.3"),
 ])
 def test_serve_modes_not_ported_raise(argv, match):
     with pytest.raises(SystemExit, match=match):
