@@ -141,6 +141,7 @@ from repro_torch.core import LatencyModel  # noqa: E402
 from repro_torch.core.simulator import CaseStudyConfig  # noqa: E402
 from repro_torch.data import TrainLoader, imdb_reviews  # noqa: E402
 from repro_torch.dist import collectives  # noqa: E402
+from repro_torch.dist import sharding as shd  # noqa: E402
 from repro_torch.examples import (  # noqa: E402
     sentiment_case_study, serve_cluster)
 from repro_torch.kernels import build  # noqa: E402
@@ -175,7 +176,8 @@ from repro_torch.serving import (  # noqa: E402
 from repro_torch.tools import trace_report  # noqa: E402
 from repro_torch.training import checkpoint as train_checkpoint  # noqa: E402
 from repro_torch.training import optimizer, train_step  # noqa: E402
-from repro_torch.tree import tree_leaves, tree_leaves_with_path  # noqa: E402
+from repro_torch.tree import (  # noqa: E402
+    tree_leaves, tree_leaves_with_path, tree_map)
 
 # Published peaks of one H100 SXM at its full 700 W limit (NVIDIA data
 # sheet, dense rates): the least time a call could take is the larger of
@@ -1488,6 +1490,11 @@ def check_partials_kernel(dev) -> dict:
 
 # the example's card sizes, seed and run config (full-width qwen2-7b)
 GEN = serve_cluster.CARD_SIZES
+# the one-rank seq-shard path (g) and the entry point held to its streams
+# (e): qwen2-7b's widths at SEQ_LAYERS of its 28 layers, cut from 28 to
+# make room for phase (s) (the same seq-shard path runs at 28 layers on
+# two ranks in (h) and on (2, 2) in phase (r))
+SEQ_LAYERS = 8
 SEED = serve_cluster.SEED
 
 
@@ -1930,10 +1937,10 @@ SEQ_RTOL = 0.02
 
 def seq_serve(engine, params, cfg, reqs, **kw) -> dict:
     """Continuous batching through a seq-shard engine with the launch
-    counts read around it: the partials kernel 28 x rounds and, sampled,
-    the sampling kernel once an admission and once a round, nothing else
-    (prefill takes the plain path); the cache's tensors at one address
-    every round."""
+    counts read around it: the partials kernel a layer a round and,
+    sampled, the sampling kernel once an admission and once a round,
+    nothing else (prefill takes the plain path); the cache's tensors at
+    one address every round."""
     ptrs = set()
     torch.cuda.synchronize()
     reset_counts()
@@ -1974,14 +1981,14 @@ def seq_engine(model, dev, mesh=None) -> Engine:
 
 
 def run_seq_shard(dev) -> tuple:
-    """Phase (g): full-width qwen2-7b through ``Engine(mesh=(1, 1),
+    """Phase (g): qwen2-7b's widths at SEQ_LAYERS layers through
+    ``Engine(mesh=(1, 1),
     seq_shard=True)`` behind ``ContinuousBatcher``: greedy and sampled at
     the reference's init (the main path), then on tamed q/k against the
     dense kernel path (teacher-forced and greedy streams) and a decode
     round on CUDA events. Returns the launch counts, the greedy streams at
-    the reference's init and, for phase (h), the tamed streams and the
-    near-tie bound."""
-    cfg = configs.get("qwen2-7b")
+    the reference's init and, for phase (h), the near-tie bound."""
+    cfg = dataclasses.replace(configs.get("qwen2-7b"), n_layers=SEQ_LAYERS)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
     engine = seq_engine(model, dev)
@@ -2085,8 +2092,7 @@ def run_seq_shard(dev) -> tuple:
                near_tie_bound=tie, streams_parted=parted,
                decode_round=rounds, launches=counts)
     print("seq_shard " + json.dumps(out))
-    return counts, greedy["streams"], {"streams": tamed["streams"],
-                                       "tie": tie}
+    return counts, greedy["streams"], {"tie": tie}
 
 
 # ---------------------------------------------------------------------------
@@ -2095,16 +2101,18 @@ def run_seq_shard(dev) -> tuple:
 
 
 def run_entry_point(dev, greedy_streams, job_tokens) -> dict:
-    """``serve_cluster.main([])`` on the card: every request served through
-    the one-rank seq-shard mesh in one decode call a round, the launches
-    its runs imply, and the same greedy streams and job tokens as phases
-    (g) and (d), which took its sizes."""
+    """``serve_cluster.run``, the body of ``serve_cluster.main``, on the
+    card with qwen2-7b at phase (g)'s SEQ_LAYERS: every request served
+    through the one-rank seq-shard mesh in one decode call a round, the
+    launches its runs imply, and the same greedy streams and job tokens as
+    phases (g) and (d), which took its sizes."""
     torch.cuda.synchronize()
     reset_counts()
-    out = serve_cluster.main([])
+    out = serve_cluster.run(dev, dataclasses.replace(
+        configs.get("qwen2-7b"), n_layers=SEQ_LAYERS))
     torch.cuda.synchronize()
     counts = read_counts()
-    n_layers = configs.get("qwen2-7b").n_layers
+    n_layers = SEQ_LAYERS
     want = dict.fromkeys(counts, 0)
     for mode in ("greedy", "sampled"):
         res = out[mode]
@@ -2138,7 +2146,8 @@ def run_entry_point(dev, greedy_streams, job_tokens) -> dict:
     if not np.array_equal(out["job"]["tokens"], job_tokens):
         raise AssertionError("the entry point's job tokens differ from "
                              "phase (d)'s")
-    print(f"entry point serve_cluster.main([]): launches {counts}; greedy "
+    print(f"entry point serve_cluster.run at {SEQ_LAYERS} layers: "
+          f"launches {counts}; greedy "
           f"streams and job tokens equal phases (g) and (d)")
     return counts
 
@@ -2148,6 +2157,9 @@ def run_entry_point(dev, greedy_streams, job_tokens) -> dict:
 # ---------------------------------------------------------------------------
 
 PAGED = serve_cluster.PAGED_CARD_SIZES
+# qwen2-7b's widths at PAGED_LAYERS of its 28 layers, cut from 28 to make
+# room for phase (s)
+PAGED_LAYERS = 8
 TEACHER_ROUNDS = 32
 FORK_STEPS = 16
 
@@ -2409,10 +2421,11 @@ def kv_bytes_per_token(cache) -> float:
 
 
 def run_paged_int8(dev) -> dict:
-    """Phase (f): full-width qwen2-7b on the shared-prefix workload, dense
-    int8, paged bf16, paged int8 and paged int8 fused-sampled, beside a
-    dense bf16 run; returns the launch counts of its serving runs."""
-    cfg = configs.get("qwen2-7b")
+    """Phase (f): qwen2-7b's widths at PAGED_LAYERS layers on the
+    shared-prefix workload, dense int8, paged bf16, paged int8 and paged
+    int8 fused-sampled, beside a dense bf16 run; returns the launch counts
+    of its serving runs."""
+    cfg = dataclasses.replace(configs.get("qwen2-7b"), n_layers=PAGED_LAYERS)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
     engines = {"bf16": Engine(model, serve_cluster.RUN, device=dev),
@@ -2674,11 +2687,11 @@ def run_paged_int8(dev) -> dict:
 # Phase (h): seq-sharded serving on ranks that share the card
 # ---------------------------------------------------------------------------
 
-# (name, ranks, layers, requests): two ranks at full width on the card
+# (name, ranks, layers, requests): two ranks at all 28 layers on the card
 # sizes, then four at RANK4_LAYERS layers on fewer requests (the only run
-# where one row spans more than two shards). RANK4_LAYERS was the job's 4
-# until phase (r) took the script past 85% of its time limit (1 031 s on
-# an H100 with 4): the one depth cut the script allows itself.
+# where one row spans more than two shards), each held to one device.
+# RANK4_LAYERS was the job's 4 until phase (r) took the script past 85% of
+# its time limit (1 031 s on an H100 with 4).
 RANK4_LAYERS = 2
 RANK_RUNS = [("seq_shard_qwen2_7b_2_ranks", 2, None, GEN.n_requests),
              (f"seq_shard_qwen2_7b_{RANK4_LAYERS}_layers_4_ranks", 4,
@@ -2691,9 +2704,11 @@ def rank_worker(spec_path: str):
     tamed model (seed ``SEED``) on a (1, ranks) seq-shard mesh, gloo on the
     shared card; continuous batching with its launch counts, the cache's
     block and address, a decode round on CUDA events, and the time spent
-    in all_reduce per round. Rank 0 also holds the streams to the given
-    ones (or, without any, to a single-device dense kernel run of the same
-    model) at near-ties. Writes its result as JSON beside the spec."""
+    in all_reduce per round. Rank 0 also holds the streams to a
+    single-device dense kernel run of the same model at near-ties: within
+    the bound phase (g) measured or, at all 28 layers, the bound this run
+    measures as (g) does (the dense kernel path against this mesh,
+    teacher-forced). Writes its result as JSON beside the spec."""
     spec = json.loads(Path(spec_path).read_text())
     dev = init_from_env("cuda")
     rank, world = rank_env()
@@ -2746,6 +2761,16 @@ def rank_worker(spec_path: str):
     finally:
         collectives._all_reduce = plain_all_reduce
     prof = profile_round(lambda: engine.decode(params, cache, tok))
+    del cache
+    dense = Engine(model, serve_cluster.RUN, device=dev)
+    tie, tf = spec["tie"], None
+    if spec["layers"] is None:
+        tf = teacher_forced([(dense, False), (engine, False)], params,
+                            batch, TEACHER_ROUNDS)
+        if tf["rel_rms"] > SEQ_RTOL:
+            raise AssertionError(f"seq-shard on {world} ranks vs dense "
+                                 f"kernel path: {tf}")
+        tie = NOISE_FACTOR * tf["max_abs_diff"] + LOGIT_FLOOR
     out = {"rank": rank, "ranks": world, "layers": cfg.n_layers,
            "requests": len(reqs), "rounds": b.rounds,
            "tokens": res["tokens"], "wall_s": res["wall_s"],
@@ -2756,35 +2781,30 @@ def rank_worker(spec_path: str):
            "all_reduce_ms_per_round": 1e3 * sum(spent) / n,
            "timed_round_ms": timed_round_ms,
            "busy_ms": prof["busy_ms"], "launches_per_round": prof["launches"],
-           "idle_share": 1 - prof["busy_ms"] / round_ms}
-    if rank == 0:
-        want = spec.get("streams")
-        if want is None:  # the same model on one device, dense kernels
-            dense = Engine(model, serve_cluster.RUN, device=dev)
-            ref = serve_cluster.make_requests(
-                cfg.vocab_size, spec["n_requests"], GEN.prompt_len,
-                GEN.new_tokens, SEED)
-            serve_cluster.serve(dense, params, ref, n_slots=GEN.n_slots,
-                                max_len=GEN.max_len, seed=SEED)
-            want = [r.generated for r in ref]
+           "idle_share": 1 - prof["busy_ms"] / round_ms,
+           "teacher_forced": tf, "near_tie_bound": tie}
+    if rank == 0:  # the same model on one device, dense kernels
+        ref = serve_cluster.make_requests(
+            cfg.vocab_size, spec["n_requests"], GEN.prompt_len,
+            GEN.new_tokens, SEED)
+        serve_cluster.serve(dense, params, ref, n_slots=GEN.n_slots,
+                            max_len=GEN.max_len, seed=SEED)
         out["parted"] = parted_at_near_ties(
-            engine, params, [r.prompt for r in reqs], want, res["streams"],
-            spec["tie"])
+            engine, params, [r.prompt for r in reqs],
+            [r.generated for r in ref], res["streams"], tie)
     Path(spec["out"], f"rank{rank}.json").write_text(json.dumps(out))
 
 
 def run_ranks(dev, seq_info) -> dict:
     """Phase (h): ``RANK_RUNS``, each as spawned processes sharing the card
     (gloo); the streams bit-identical on every rank and, at near-ties, equal
-    to phase (g)'s (two ranks, full width) or to one device's (four ranks).
-    Returns each run's per-rank launch counts, summed."""
+    to one device's. Returns each run's per-rank launch counts, summed."""
     torch.cuda.empty_cache()
     paths = {}
     for name, ranks, layers, n_req in RANK_RUNS:
         with tempfile.TemporaryDirectory() as tmp:
             spec = {"layers": layers, "n_requests": n_req, "out": tmp,
-                    "tie": seq_info["tie"],
-                    "streams": None if layers else seq_info["streams"]}
+                    "tie": seq_info["tie"]}
             spec_path = Path(tmp, "spec.json")
             spec_path.write_text(json.dumps(spec))
             t0 = time.perf_counter()
@@ -2815,7 +2835,7 @@ def run_ranks(dev, seq_info) -> dict:
             launches_all_ranks=counts)
         print(f"(h) {name}: {sorted(backends)}; streams bit-identical on "
               f"{ranks} ranks, {res[0]['parted']} of {n_req} parted from "
-              f"{'phase (g)' if layers is None else 'one device'} at "
+              f"one device at "
               f"near-ties; {json.dumps(summary)}")
         paths[name] = counts
     return paths
@@ -4712,20 +4732,21 @@ R_TIMEOUT_S = 900
 R_FORCED = 8
 
 
-def r_requests(cfg):
+def r_requests(cfg, gen=R_GEN):
     return serve_cluster.make_requests(
-        cfg.vocab_size, R_GEN["n_requests"], R_GEN["prompt_len"],
-        R_GEN["new_tokens"], SEED)
+        cfg.vocab_size, gen["n_requests"], gen["prompt_len"],
+        gen["new_tokens"], SEED)
 
 
-def r_serve(engine, params, cfg, **kw) -> dict:
-    """r2's continuous batching with the launch counts around it."""
-    reqs = r_requests(cfg)
+def r_serve(engine, params, cfg, gen=R_GEN, **kw) -> dict:
+    """r2's (or ``gen``'s) continuous batching with the launch counts
+    around it."""
+    reqs = r_requests(cfg, gen)
     torch.cuda.synchronize()
     reset_counts()
     res = serve_cluster.serve(engine, params, reqs,
-                              n_slots=R_GEN["n_slots"],
-                              max_len=R_GEN["max_len"], seed=SEED, **kw)
+                              n_slots=gen["n_slots"],
+                              max_len=gen["max_len"], seed=SEED, **kw)
     torch.cuda.synchronize()
     b = res["batcher"]
     if b.take_rejected() or len(res["completed"]) != len(reqs):
@@ -4969,18 +4990,19 @@ def clf_tokens(cfg):
 
 
 def tp_worker(spec_path: str):
-    """One rank of phase (r), started by ``launch.mesh.spawn_ranks``: the
-    spec's jobs for this world size in turn, each result written beside
-    the spec by every rank (rank 0's is the one held; the others' streams
-    must equal it)."""
+    """One rank of phases (r) and (s), started by
+    ``launch.mesh.spawn_ranks``: the spec's jobs for this world size in
+    turn, each result written beside the spec by every rank (rank 0's is
+    the one held; the others' streams must equal it)."""
     spec = json.loads(Path(spec_path).read_text())
     dev = init_from_env(spec["device"])
     rank, world = rank_env()
     out = {}
+    run = {"clf": tp_clf_job, "lm": tp_lm_job, "zero_train": zero_train_job,
+           "zero_serve": zero_serve_job}
     for job in spec["jobs"]:
         t0 = time.perf_counter()
-        out[job["name"]] = (tp_clf_job if job["kind"] == "clf"
-                            else tp_lm_job)(dev, job, rank)
+        out[job["name"]] = run[job["kind"]](dev, job, rank)
         out[job["name"]]["job_s"] = time.perf_counter() - t0
     torch.save(out, Path(spec["out"], f"rank{rank}.pt"))
 
@@ -5048,7 +5070,9 @@ class _Draws:
 
 
 def sampled_parted_at_near_ties(dev, draws, want, got, tie, kw,
-                                mesh_draws=None) -> list:
+                                mesh_draws=None,
+                                limits=(R_SAMPLED_PARTS, R_EDGE_PARTS)
+                                ) -> list:
     """Sampled streams equal token for token, or parted only where the
     mesh's logits, within ``tie`` of the one-rank run's, explain it (both
     runs draw the same noise and sample through the kernel). Where the
@@ -5057,8 +5081,9 @@ def sampled_parted_at_near_ties(dev, draws, want, got, tie, kw,
     logits differ by at most ``tie``, and the kernel on each draw's
     logits and noise gives that run's token. Else b stays in the filters
     with its logit raised by 2 tie, and its ``logit / T + noise`` is
-    within 2 tie / T of the drawn token a's. At most R_SAMPLED_PARTS
-    streams may part, R_EDGE_PARTS of them past that draw-gap bound.
+    within 2 tie / T of the drawn token a's. At most ``limits`` = (R_SAMPLED_PARTS,
+    R_EDGE_PARTS) streams may part, the second of them past that
+    draw-gap bound.
     Returns each parting's [stream, token, draw gap
     (one-rank logits), bound, logit difference at the draw (None
     without the mesh's draw), a droppable by a 2-tie move]."""
@@ -5101,23 +5126,24 @@ def sampled_parted_at_near_ties(dev, draws, want, got, tie, kw,
                 f"at the draw (tie {tie}), a droppable {droppable}")
         parted.append([rid, i, gap, bound, diff, droppable])
     edge = sum(p[2] > bound for p in parted)
-    if len(parted) > R_SAMPLED_PARTS or edge > R_EDGE_PARTS:
+    if len(parted) > limits[0] or edge > limits[1]:
         raise AssertionError(
             f"{len(parted)} sampled streams parted, {edge} past the draw "
-            f"gap bound; at most {R_SAMPLED_PARTS} and {R_EDGE_PARTS} may: "
+            f"gap bound; at most {limits[0]} and {limits[1]} may: "
             f"{parted}")
     return parted
 
 
-def forced_tokens(greedy) -> list:
-    """R_FORCED rounds of the first R_GEN["n_slots"] requests' greedy
+def forced_tokens(greedy, gen=R_GEN, rounds: int = R_FORCED) -> list:
+    """``rounds`` rounds of the first ``gen["n_slots"]`` requests' greedy
     tokens: the inputs of the teacher-forced rounds."""
-    streams = greedy["streams"][:R_GEN["n_slots"]]
-    return [[s[j] for s in streams] for j in range(R_FORCED)]
+    streams = greedy["streams"][:gen["n_slots"]]
+    return [[s[j] for s in streams] for j in range(rounds)]
 
 
 def one_rank_lm(dev, cfg, prefill=None, halves: bool = False,
-                sampled: bool = False) -> dict:
+                sampled: bool = False, gen=R_GEN,
+                rounds: int = R_FORCED) -> dict:
     """The one-rank engine's results on the same params and requests:
     admission logits, greedy streams, (``prefill``) the logits of an
     (8, 256) batch, whole or as two halves (the scatter dispatch's groups
@@ -5136,23 +5162,23 @@ def one_rank_lm(dev, cfg, prefill=None, halves: bool = False,
         parts = np.split(toks, 2) if halves else [toks]
         out["prefill_logits"] = torch.cat(
             [eng.prefill(params, p)[0] for p in parts]).cpu()
-    reqs = r_requests(cfg)
-    cache = engine.new_cache(R_GEN["n_slots"], R_GEN["max_len"])
+    reqs = r_requests(cfg, gen)
+    cache = engine.new_cache(gen["n_slots"], gen["max_len"])
     out["admission_logits"] = torch.cat(
         [engine.prefill_into(params, cache, row, r.prompt[None])[0]
-         for row, r in enumerate(reqs[:R_GEN["n_slots"]])]).cpu()
-    out["greedy"] = r_serve(engine, params, cfg)
+         for row, r in enumerate(reqs[:gen["n_slots"]])]).cpu()
+    out["greedy"] = r_serve(engine, params, cfg, gen)
     forced = []
-    for toks in forced_tokens(out["greedy"]):
+    for toks in forced_tokens(out["greedy"], gen, rounds):
         tok = torch.tensor(toks, device=dev, dtype=torch.int32)[:, None]
         forced.append(engine.decode(params, cache, tok)[0].cpu())
     out["forced_logits"] = torch.stack(forced)
     del cache
     if sampled:
         with _Draws(engine_mod) as m:
-            reqs = r_requests(cfg)
-            b = ContinuousBatcher(engine, params, n_slots=R_GEN["n_slots"],
-                                  max_len=R_GEN["max_len"], seed=SEED,
+            reqs = r_requests(cfg, gen)
+            b = ContinuousBatcher(engine, params, n_slots=gen["n_slots"],
+                                  max_len=gen["max_len"], seed=SEED,
                                   fused_sampling=True, on_token=m.on_token,
                                   **serve_cluster.SAMPLING)
             m.batcher = b
@@ -5329,13 +5355,680 @@ def check_clf(dev, ranks, cfg) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase (s): the ZeRO-3 layouts ("fsdp", "fsdp_tp") on phase (r)'s spawns
+# ---------------------------------------------------------------------------
+
+# s1: distilbert-imdb at full width, S_CLF_STEPS AdamW steps of phase (o)'s
+# batches (its fan-in q/k, its schedule) under each layout on (2, 2), then
+# the fsdp_tp-trained shards classify phase (o)'s held-out reviews
+S_CLF_STEPS = 4
+S_CLF = [((2, 2), "fsdp"), ((2, 2), "fsdp_tp")]
+# s2: qwen2-7b at full width, S_QWEN_LAYERS of its 28 layers (AdamW's state
+# for 28 is about 137 GB), S_QWEN_STEPS steps of next-token batches
+S_QWEN_LAYERS, S_QWEN_STEPS, S_QWEN_BATCH = 2, 2, (4, 128)
+# s3: mamba2-130m, all 24 layers, under "fsdp" on (2, 1)
+S_MAMBA_STEPS, S_MAMBA_BATCH = 3, (4, 256)
+# s4: qwen2-7b, all 28 layers, served under "fsdp_tp" on (2, 2)
+S_GEN = dict(n_requests=4, prompt_len=(64, 257), new_tokens=(8, 9),
+             n_slots=4, max_len=512)
+S_FORCED = 2
+# a sharded step against one rank, both in bf16: the first step's loss and
+# grad norm (the same params on both sides) within S_LOSS_RTOL /
+# S_GNORM_RTOL, the later steps' within S_TRAJ_RTOL (AdamW moves a weight
+# by about +-lr whatever its grad's size, so a grad within rounding of 0
+# may step either way and the two runs' params part), the first step's
+# grads (s1, s3) within S_GRAD_RTOL relative RMS over the tree, the
+# params' change over the steps within S_UPDATE_RTOL relative RMS; s4's
+# param bytes a rank within S_MEM_RTOL of ``memory_allocated`` after the
+# init. Each bound must sit between two readings of the same run: the
+# sound twin (one rank again, each batch's rows in reverse order: the
+# same loss and grads summed in another order) must pass every bound, and
+# the mesh step with S_FAULT planted must break one. S_TRAJ_RTOL and
+# S_UPDATE_RTOL are the geometric means, to one figure, of the largest
+# sound and the smallest faulty reading on an H100 (later steps 0.0315
+# and 0.291, the update 0.245 and 0.814: PERF.md §6, PR 22); the other
+# bounds already sat between the two (the first step's loss, computed
+# before any grad, is the forward's check: the fault cannot move it)
+S_LOSS_RTOL, S_GNORM_RTOL, S_GRAD_RTOL = 1e-2, 2e-2, 5e-2
+S_TRAJ_RTOL, S_UPDATE_RTOL, S_MEM_RTOL = 0.1, 0.4, 0.01
+# the planted fault: grads not summed over the data axes (each rank steps
+# on its own rows' grads)
+S_FAULT = "not_summed"
+
+
+def s_train_setup(what: str, reverse: bool = False):
+    """(cfg, tame q/k?, batches, optimizer) of an s1-s3 training job; the
+    batches are drawn from SEED, the same in every process (``reverse``:
+    each batch's rows in reverse order, the sound twin's)."""
+    cfg, tame, batches, opt = _s_train_setup(what)
+    if reverse:
+        batches = [{k: np.ascontiguousarray(v[::-1]) for k, v in b.items()}
+                   for b in batches]
+    return cfg, tame, batches, opt
+
+
+def _s_train_setup(what: str):
+    if what == "clf":
+        cfg = configs.get("distilbert-imdb")
+        x, y, _, _ = imdb_split(cfg)
+        loader = TrainLoader(x, y, batch=TRAIN["batch"], seed=SEED)
+        return cfg, True, [loader.next_batch()
+                           for _ in range(S_CLF_STEPS)], adamw()
+    if what == "qwen":
+        cfg = dataclasses.replace(R_CONFIG("qwen2-7b"),
+                                  n_layers=S_QWEN_LAYERS)
+        shape, steps, lr = S_QWEN_BATCH, S_QWEN_STEPS, 1e-4
+    else:
+        cfg = R_CONFIG("mamba2-130m")
+        shape, steps, lr = S_MAMBA_BATCH, S_MAMBA_STEPS, 1e-4
+    rng = np.random.default_rng(SEED)
+    batches = []
+    for _ in range(steps):
+        t = rng.integers(0, cfg.vocab_size,
+                         (shape[0], shape[1] + 1)).astype(np.int32)
+        batches.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    return (cfg, what == "qwen", batches,
+            optimizer.AdamW(schedule=optimizer.constant(lr)))
+
+
+def s_init(model, dev, tame: bool, shardings=None):
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev,
+                        shardings=shardings)
+    if tame:
+        tame_attention(model.cfg, params)
+    return params
+
+
+class _FirstGrads:
+    """An optimizer that keeps the grads of its first update."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params, shardings=None):
+        if self.grads is None:
+            self.grads = grads
+        return self.opt.update(grads, state, params, shardings=shardings)
+
+
+def s_steps(step, params, state, batches) -> tuple:
+    """The steps, each one's loss, grad norm and ms on CUDA events."""
+    metrics = []
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, m = step(params, state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        metrics.append({"loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"]),
+                        "ms": start.elapsed_time(end)})
+    return params, state, metrics
+
+
+def s_reference_train(dev, what: str, path: Path) -> dict:
+    """One rank's run of an s1-s3 job: each step's metrics; the params
+    after the steps and the first step's grads (s1, s3) saved whole to
+    ``path`` for the ranks to read their blocks of; s1's held-out
+    logits."""
+    cfg, tame, batches, opt = s_train_setup(what)
+    model = build_model(cfg)
+    params = s_init(model, dev, tame)
+    rec = _FirstGrads(opt)
+    step = train_step.make_train_step(model, RunConfig(), rec)
+    params, _, metrics = s_steps(step, params, rec.init(params), batches)
+    torch.save({"params": tree_map(lambda t: t.cpu(), params),
+                "grads": None if what == "qwen" else
+                tree_map(lambda t: t.cpu(), rec.grads)}, path)
+    out = {"metrics": metrics}
+    if what == "clf":
+        _, _, held_x, _ = imdb_split(cfg)
+        engine = Engine(model, RunConfig(attn_impl="pallas"), device=dev)
+        out["held_logits"] = engine.classify_logits(params, held_x)
+    del params, rec, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def s_sound_twin(dev, what: str, path: Path, ref: dict) -> dict:
+    """The sound reading of an s1-s3 job: one rank again on the batches
+    with their rows reversed, held to the reference run (saved at
+    ``path``) as the mesh is: each step's loss and grad norm, the update
+    and (s1, s3) the first grads."""
+    cfg, tame, batches, opt = s_train_setup(what, reverse=True)
+    model = build_model(cfg)
+    params = s_init(model, dev, tame)
+    base = tree_map(lambda t: t.cpu(), params)
+    rec = _FirstGrads(opt)
+    step = train_step.make_train_step(model, RunConfig(), rec)
+    params, _, metrics = s_steps(step, params, rec.init(params), batches)
+    saved = torch.load(path, mmap=True, weights_only=False)
+
+    def errors(got, want, zero):  # s_errors of one rank holding it all
+        zero = dict(tree_leaves_with_path(zero)) if zero else {}
+        out = {}
+        for (p, t), w in zip(tree_leaves_with_path(got), tree_leaves(want)):
+            w = w.to(t.device).float()
+            b = zero[p].to(t.device).float() if p in zero else 0.0
+            out[p] = [float(((t.float() - w) ** 2).sum()),
+                      float(((w - b) ** 2).sum())]
+        return out
+    update = [errors(params, saved["params"], base)]
+    grads = (None if saved["grads"] is None else
+             [errors(rec.grads, saved["grads"], None)])
+    del params, rec, step, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return s_readings(metrics, ref["metrics"], update, grads)
+
+
+def s_readings(metrics, ref_metrics, update, grads) -> dict:
+    """A run held to the one-rank reference: each step's relative loss
+    and grad-norm difference, the update's and (given) the first grads'
+    relative RMS over the ranks' blocks."""
+    out = {f"{key}_rel": [abs(g[key] - w[key]) / abs(w[key]) for g, w in
+                          zip(metrics, ref_metrics)]
+           for key in ("loss", "grad_norm")}
+    out["update_rel_rms"] = s_rel(update)
+    if grads is not None:
+        out["grad_rel_rms"] = s_rel(grads)
+    return out
+
+
+def s_broken(r: dict) -> list:
+    """The bounds that readings ``r`` break."""
+    later = r["loss_rel"][1:] + r["grad_norm_rel"][1:]
+    return [name for name, bad in (
+        ("loss", r["loss_rel"][0] > S_LOSS_RTOL),
+        ("grad_norm", r["grad_norm_rel"][0] > S_GNORM_RTOL),
+        ("trajectory", max(later, default=0.0) > S_TRAJ_RTOL),
+        ("update", r["update_rel_rms"] > S_UPDATE_RTOL),
+        ("grads", r.get("grad_rel_rms", 0.0) > S_GRAD_RTOL)) if bad]
+
+
+def s_planted(fault):
+    """Patches that break the sharded step as S_FAULT says (``fault``
+    None: none); returns their undoing."""
+    if fault is None:
+        return lambda: None
+    rs, sw = collectives._reduce_scatter, train_step._sum_whole_leaves
+    collectives._reduce_scatter = lambda g, group, index, n: \
+        g[index].clone()
+    train_step._sum_whole_leaves = lambda grads, sums: grads
+
+    def undo():
+        collectives._reduce_scatter = rs
+        train_step._sum_whole_leaves = sw
+    return undo
+
+
+def s_errors(got, ref, base, shardings, mesh) -> dict:
+    """path -> [sum of (got - ref)^2, sum of (ref - base)^2] over this
+    rank's blocks (``base`` None: of ref^2), each element counted on one
+    rank only (``Sharding.counted_here``)."""
+    out = {}
+    cuts = dict(tree_leaves_with_path(shardings, lambda x: isinstance(
+        x, shd.Sharding)))
+    whole = dict(tree_leaves_with_path(ref))
+    zero = dict(tree_leaves_with_path(base)) if base is not None else {}
+    for path, t in tree_leaves_with_path(got):
+        if not cuts[path].counted_here(mesh):
+            continue
+        r = cuts[path].slice(whole[path]).to(t.device).float()
+        b = zero[path].to(t.device).float() if path in zero else 0.0
+        out[path] = [float(((t.float() - r) ** 2).sum()),
+                     float(((r - b) ** 2).sum())]
+    return out
+
+
+def zero_train_job(dev, job, rank) -> dict:
+    """One s1-s3 layout on this rank: the shards drawn in turn, the steps
+    under ``make_train_step(mesh=, strategy=)``, the params' and first
+    grads' errors against the reference's blocks, and (s1 under
+    "fsdp_tp") the trained shards classifying the held-out reviews
+    through ``Engine(strategy="fsdp_tp")`` on the flash kernel."""
+    cfg, tame, batches, opt = s_train_setup(job["what"])
+    model = build_model(cfg)
+    shape, strategy = tuple(job["shape"]), job["strategy"]
+    mesh = make_host_mesh(shape)
+    sh = shd.param_shardings(model.param_specs, strategy, mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for r in range(int(np.prod(shape))):
+        if r == rank:
+            params = s_init(model, dev, tame, sh)
+            torch.cuda.synchronize()
+        torch.distributed.barrier()
+    base = tree_map(lambda t: t.cpu(), params)  # the card is shared
+    rec = _FirstGrads(opt)
+    step = train_step.make_train_step(model, RunConfig(), rec, mesh=mesh,
+                                      strategy=strategy)
+    collectives.reset_stats()
+    undo = s_planted(job.get("fault"))
+    try:
+        params, _, metrics = s_steps(step, params, rec.init(params),
+                                     batches)
+    finally:
+        undo()
+    stats = {k: v[0] for k, v in collectives.STATS.items()}
+    ref = torch.load(job["ref"], mmap=True, weights_only=False)
+    out = {"shape": shape, "strategy": strategy, "metrics": metrics,
+           "collectives": stats,
+           "update": s_errors(params, ref["params"], base, sh, mesh),
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(params)),
+           "planned_bytes": shd.rank_param_bytes(model.param_specs,
+                                                 strategy, mesh),
+           "peak_allocated": torch.cuda.max_memory_allocated(dev)}
+    if ref["grads"] is not None:
+        out["grads"] = s_errors(rec.grads, ref["grads"], None, sh, mesh)
+    del base, rec, step
+    if job.get("serve"):
+        _, _, held_x, _ = imdb_split(cfg)
+        engine = Engine(model, RunConfig(attn_impl="pallas"), device=dev,
+                        mesh=mesh, strategy="fsdp_tp")
+        flash, heads = fa_ops.flash_attention, set()
+
+        def spy(q, *a, **kw):
+            heads.add((int(q.shape[2]), int(a[0].shape[2])))
+            return flash(q, *a, **kw)
+        torch.cuda.synchronize()
+        reset_counts()
+        fa_ops.flash_attention = spy
+        try:
+            out["held_logits"] = engine.classify_logits(params, held_x)
+        finally:
+            fa_ops.flash_attention = flash
+        torch.cuda.synchronize()
+        out["serve_launches"] = read_counts()
+        out["flash_heads"] = sorted(heads)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero_gathers(model, mesh) -> int:
+    """``param_gather``'s all_gathers in one pass over the layers under
+    "fsdp_tp": per unit (the embedding, each layer, the final norm, the
+    head) one a set of (ZeRO axes, dtype) among its cut leaves."""
+    sh = shd.param_shardings(model.param_specs, "fsdp_tp", mesh)
+    specs = model.param_specs
+
+    def packs(sub, sub_sh) -> int:
+        cuts = dict(tree_leaves_with_path(sub_sh, lambda x: isinstance(
+            x, shd.Sharding)))
+        return len({(cuts[p].zero_axes, s.dtype) for p, s in
+                    tree_leaves_with_path(sub, lambda x: hasattr(x, "axes"))
+                    if cuts[p].zero})
+    return sum(packs(specs["blocks"][i], sh["blocks"][i])
+               for i in range(len(specs["blocks"]))) + sum(
+        packs(specs[k], sh[k]) for k in specs if k != "blocks")
+
+
+def zero_serve_job(dev, job, rank) -> dict:
+    """s4 on this rank: qwen2-7b's 28 layers under "fsdp_tp" on (2, 2),
+    the shards drawn in turn (tamed q/k), the bytes held against the
+    planner's and ``memory_allocated``; admission logits (flash heads
+    spied), teacher-forced rounds (the first one's launches and
+    collectives counted, then rounds timed, the gathers timed), greedy
+    and fused-sampled continuous batching."""
+    cfg = R_CONFIG("qwen2-7b")
+    model = build_model(cfg)
+    mesh = make_host_mesh((2, 2))
+    engine = Engine(model, serve_cluster.RUN, device=dev, mesh=mesh,
+                    strategy="fsdp_tp")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    for r in range(4):
+        if r == rank:
+            params = r_init(model, dev, engine.params_sharding)
+            torch.cuda.synchronize()
+        torch.distributed.barrier()
+    out = {"param_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(params)),
+           "planned_bytes": shd.rank_param_bytes(model.param_specs,
+                                                 "fsdp_tp", mesh),
+           "memory_allocated": torch.cuda.memory_allocated(dev) - mem0,
+           "gathers_a_pass": zero_gathers(model, mesh)}
+    reqs = r_requests(cfg, S_GEN)
+    cache = engine.new_cache(S_GEN["n_slots"], S_GEN["max_len"])
+    heads, flash = [], fa_ops.flash_attention
+
+    def spy(q, *a, **kw):
+        heads.append((int(q.shape[2]), int(a[0].shape[2])))
+        return flash(q, *a, **kw)
+    fa_ops.flash_attention = spy
+    try:
+        logits = [engine.prefill_into(params, cache, row, r.prompt[None])[0]
+                  for row, r in enumerate(reqs[:S_GEN["n_slots"]])]
+    finally:
+        fa_ops.flash_attention = flash
+    out["admission_logits"] = torch.cat(logits).cpu()
+    out["flash_heads"] = sorted(set(heads))
+    forced = []
+    for j, toks in enumerate(job["forced"]):
+        tok = torch.tensor(toks, device=dev, dtype=torch.int32)[:, None]
+        if j == 0:
+            torch.cuda.synchronize()
+            reset_counts()
+            collectives.reset_stats()
+        forced.append(engine.decode(params, cache, tok)[0].cpu())
+        if j == 0:
+            torch.cuda.synchronize()
+            out["round_launches"] = read_counts()
+            out["round_collectives"] = {k: v[0] for k, v in
+                                        collectives.STATS.items()}
+    out["forced_logits"] = torch.stack(forced)
+    out["round_ms"] = cuda_ms(lambda: engine.decode(params, cache, tok),
+                              iters=3, warmup=1)
+    collectives.reset_stats()
+    collectives.set_timing(True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            engine.decode(params, cache, tok)
+        torch.cuda.synchronize()
+        out["timed_round_ms"] = 1e3 * (time.perf_counter() - t0) / 3
+    finally:
+        collectives.set_timing(False)
+    out["collective_ms_per_round"] = {k: 1e3 * v[1] / 3 for k, v in
+                                      collectives.STATS.items()}
+    del cache
+    out["greedy"] = r_serve(engine, params, cfg, S_GEN)
+    out["sampled"] = r_serve(engine, params, cfg, S_GEN, fused_sampling=True,
+                             **serve_cluster.SAMPLING)
+    del params, engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def s_rel(errs: list, key: str = None) -> float:
+    """sqrt(sum of squared differences / sum of squares), summed over the
+    ranks' blocks."""
+    num = sum(e[p][0] for e in errs for p in e)
+    den = sum(e[p][1] for e in errs for p in e)
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def check_zero_train(name, ranks, ref) -> dict:
+    """Hold one s1-s3 layout to one rank: every rank's metrics equal; each
+    step's loss and grad norm, the update and (s1, s3) the first grads
+    within their bounds (with S_FAULT planted: past one of them); the
+    shards' bytes the planner's."""
+    res = ranks[0]
+    seen = [[(m["loss"], m["grad_norm"]) for m in x["metrics"]]
+            for x in ranks]
+    if any(v != seen[0] for v in seen) or not np.isfinite(seen).all():
+        raise AssertionError(f"(s) {name}: each rank's (loss, grad norm) "
+                             f"{seen}, one rank's {ref['metrics']}")
+    out = {"strategy": res["strategy"], "mesh": list(res["shape"])}
+    out.update(s_readings(res["metrics"], ref["metrics"],
+                          [x["update"] for x in ranks],
+                          [x["grads"] for x in ranks]
+                          if "grads" in res else None))
+    broken = s_broken(out)
+    if name.endswith(S_FAULT):
+        if not broken:
+            raise AssertionError(f"(s) {name}: the planted fault passed "
+                                 f"every bound {out}")
+        out["broken"] = broken
+        return out
+    if broken:
+        raise AssertionError(f"(s) {name}: {broken} vs one rank {out}")
+    for r, x in enumerate(ranks):
+        if x["param_bytes"] != x["planned_bytes"]:
+            raise AssertionError(f"(s) {name} rank {r}: "
+                                 f"{x['param_bytes']} param bytes, planned "
+                                 f"{x['planned_bytes']}")
+    out.update(param_bytes_per_rank=res["param_bytes"],
+               peak_allocated_per_rank=[x["peak_allocated"] for x in ranks],
+               step_ms=[m["ms"] for m in res["metrics"]],
+               one_rank_step_ms=[m["ms"] for m in ref["metrics"]],
+               collectives_rank0=res["collectives"])
+    return out
+
+
+def check_zero_clf(name, ranks, ref, cfg) -> dict:
+    """s1's serving: the fsdp_tp-trained shards' held-out labels against
+    the one-rank trained classifier's, parting only at near-ties; flash
+    at 6 local heads, once a layer a classify call on every rank."""
+    res = ranks[0]
+    logits, one = res["held_logits"], ref["held_logits"]
+    for x in ranks[1:]:
+        if not np.array_equal(x["held_logits"], logits):
+            raise AssertionError(f"(s) {name}: ranks' logits differ")
+    err = rel_rms(torch.as_tensor(logits), torch.as_tensor(one))
+    diff = float(np.abs(logits - one).max())
+    tie = NOISE_FACTOR * diff + LOGIT_FLOOR
+    near, hard = near_tie_labels(logits, one, tie)
+    heads = [(cfg.n_heads // 2, cfg.n_kv_heads // 2)]
+    for r, x in enumerate(ranks):  # one classify call of every row
+        if [tuple(h) for h in x["flash_heads"]] != heads or \
+                x["serve_launches"]["flash_attention"] != cfg.n_layers:
+            raise AssertionError(f"(s) {name} rank {r}: flash "
+                                 f"{x['serve_launches']}, heads "
+                                 f"{x['flash_heads']}")
+    if err > PATH_RTOL or hard:
+        raise AssertionError(f"(s) {name}: held-out logits vs one rank: "
+                             f"rel RMS {err}, label flips past near-ties "
+                             f"{hard}")
+    return {"held_logit_rel_rms": err, "max_abs_diff": diff,
+            "near_tie_items": near, "labels_equal": int(
+                (logits.argmax(-1) == one.argmax(-1)).sum()),
+            "flash_launches_per_rank": [
+                x["serve_launches"]["flash_attention"] for x in ranks],
+            "flash_heads": heads}
+
+
+def check_zero_serve(dev, ranks, ref) -> dict:
+    """s4 against one rank: streams equal on every rank; admission and
+    teacher-forced logits within PATH_RTOL; greedy and sampled streams
+    parted only at near-ties; a round's launches (decode once a layer)
+    and collectives (``want_collectives`` of "tp" on (2, 2) plus
+    ``zero_gathers`` layer gathers); bytes a rank the planner's, and
+    ``memory_allocated`` after the init within S_MEM_RTOL of them; the
+    serving runs' launches."""
+    cfg = R_CONFIG("qwen2-7b")
+    res = ranks[0]
+    for x in ranks[1:]:
+        for mode in ("greedy", "sampled"):
+            if x[mode]["streams"] != res[mode]["streams"]:
+                raise AssertionError(f"(s4) ranks' {mode} streams differ")
+    err = rel_rms(res["admission_logits"], ref["admission_logits"])
+    ferr = rel_rms(res["forced_logits"], ref["forced_logits"])
+    diff = max(float((res[k] - ref[k]).abs().max())
+               for k in ("admission_logits", "forced_logits"))
+    tie = NOISE_FACTOR * diff + LOGIT_FLOOR
+    out = {"admission_rel_rms": err, "forced_rel_rms": ferr,
+           "max_abs_diff": diff, "near_tie_bound": tie}
+    if max(err, ferr) > PATH_RTOL:
+        raise AssertionError(f"(s4) logits vs one rank {out}")
+    prompts = [r.prompt for r in r_requests(cfg, S_GEN)]
+    out["greedy_parted"] = judge_greedy(dev, cfg, prompts,
+                                        ref["greedy"]["streams"],
+                                        res["greedy"]["streams"], tie)
+    n = S_GEN["n_requests"]
+    out["sampled_partings"] = sampled_parted_at_near_ties(
+        dev, ref["sampled"]["draws"], ref["sampled"]["streams"],
+        res["sampled"]["streams"], tie, serve_cluster.SAMPLING,
+        limits=(3 * n // 4, n // 4))
+    want = dict(NO_LAUNCHES, decode_attention=cfg.n_layers)
+    wcol = dict(want_collectives(cfg, (2, 2), False),
+                all_gather_param=res["gathers_a_pass"])
+    for r, x in enumerate(ranks):
+        got = {k: v for k, v in x["round_collectives"].items() if v}
+        if x["round_launches"] != want or got != wcol:
+            raise AssertionError(f"(s4) rank {r}: a round launched "
+                                 f"{x['round_launches']} with collectives "
+                                 f"{got}; want {want}, {wcol}")
+        if x["param_bytes"] != x["planned_bytes"] or abs(
+                x["memory_allocated"] - x["planned_bytes"]) > \
+                S_MEM_RTOL * x["planned_bytes"]:
+            raise AssertionError(f"(s4) rank {r}: {x['param_bytes']} param "
+                                 f"bytes, {x['memory_allocated']} allocated,"
+                                 f" planned {x['planned_bytes']}")
+    heads = {(cfg.n_heads // 2, cfg.n_kv_heads // 2)}
+    if set(map(tuple, res["flash_heads"])) != heads:
+        raise AssertionError(f"(s4) flash heads {res['flash_heads']}")
+    # every rank runs every admission (its layers' gathers span the data
+    # ranks): flash once a layer an admission and, sampled, the sampling
+    # kernel once an admission on every rank; the decode kernel once a
+    # layer a round; the sampling kernel once a round on each rank's rows
+    for mode in ("greedy", "sampled"):
+        rounds = res[mode]["rounds"]
+        for r, x in enumerate(ranks):
+            c = x[mode]["counts"]
+            want_sample = n + rounds if mode == "sampled" else 0
+            if c["flash_attention"] != cfg.n_layers * n or \
+                    c["decode_attention"] != cfg.n_layers * rounds or \
+                    c["fused_sample"] != want_sample:
+                raise AssertionError(f"(s4) {mode} rank {r}: {c} over "
+                                     f"{rounds} rounds")
+    out.update({k: res[k] for k in (
+        "param_bytes", "planned_bytes", "memory_allocated",
+        "gathers_a_pass", "flash_heads", "round_collectives", "round_ms",
+        "timed_round_ms", "collective_ms_per_round", "job_s")})
+    out["memory_allocated_per_rank"] = [x["memory_allocated"]
+                                        for x in ranks]
+    out["greedy_tokens_per_s"] = (res["greedy"]["tokens"]
+                                  / res["greedy"]["wall_s"])
+    return out
+
+
+def zero_jobs(dev, tmp: Path) -> tuple:
+    """Phase (s)'s jobs for the 2- and 4-rank spawns and its one-rank
+    references (computed here, before the spawns)."""
+    refs = {}
+    for what in ("clf", "qwen", "mamba"):
+        t = time.perf_counter()
+        refs[what] = s_reference_train(dev, what, tmp / f"s_{what}.pt")
+        refs[what]["twin"] = s_sound_twin(dev, what, tmp / f"s_{what}.pt",
+                                          refs[what])
+        refs[what]["s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    refs["serve"] = one_rank_lm(dev, R_CONFIG("qwen2-7b"), sampled=True,
+                                gen=S_GEN, rounds=S_FORCED)
+    refs["serve"]["s"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    jobs = {2: [dict(kind="zero_train", what="mamba", shape=(2, 1),
+                     strategy="fsdp", name="s3 mamba2 fsdp(2, 1)",
+                     ref=str(tmp / "s_mamba.pt"))],
+            4: [dict(kind="zero_train", what="clf", shape=s, strategy=st,
+                     name=f"s1 distilbert {st}{s}",
+                     ref=str(tmp / "s_clf.pt"), serve=st == "fsdp_tp")
+                for s, st in S_CLF]
+            + [dict(kind="zero_train", what="qwen", shape=(2, 2),
+                    strategy="fsdp_tp", name="s2 qwen2-7b fsdp_tp(2, 2)",
+                    ref=str(tmp / "s_qwen.pt")),
+               dict(kind="zero_serve", name="s4 qwen2-7b fsdp_tp(2, 2)",
+                    forced=forced_tokens(refs["serve"]["greedy"], S_GEN,
+                                         S_FORCED))]}
+    for js in jobs.values():  # each training layout's first with the fault
+        firsts = {}
+        for job in js:
+            if job["kind"] == "zero_train":
+                firsts.setdefault(job["what"], job)
+        js += [dict(job, name=f"{job['name']} {S_FAULT}", fault=S_FAULT,
+                    serve=False) for job in firsts.values()]
+    print(f"(s) one-rank references "
+          f"{ {k: round(v['s'], 1) for k, v in refs.items()} } s",
+          flush=True)
+    return jobs, refs
+
+
+def check_zero(dev, ranks: dict, refs: dict) -> dict:
+    """Phase (s)'s checks, every job's before any failure is raised;
+    returns the launch counts by path."""
+    paths, failed, readings = {}, [], {}
+    for what in ("clf", "qwen", "mamba"):
+        twin = refs[what]["twin"]
+        readings[f"{what} sound twin"] = twin
+        print(f"(s) {what} sound twin (one rank, rows reversed) vs one "
+              f"rank: {json.dumps(twin)}", flush=True)
+        if s_broken(twin):
+            failed.append(f"(s) {what} sound twin broke {s_broken(twin)}")
+    for name, rs in ranks.items():
+        try:
+            readings[name] = check_zero_job(dev, name, rs, refs, paths)
+        except AssertionError as e:
+            failed.append(str(e))
+    print(f"(s) bounds between the sound and the faulty readings: "
+          f"{json.dumps(s_margins(readings))}", flush=True)
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return paths
+
+
+def s_margins(readings: dict) -> dict:
+    """For each bound of the s1-s3 checks: the largest reading of a sound
+    run (each mesh layout, each twin), the bound, and the smallest reading
+    of a run with S_FAULT planted."""
+    keys = {"loss": (S_LOSS_RTOL, lambda r: r["loss_rel"][0]),
+            "grad_norm": (S_GNORM_RTOL, lambda r: r["grad_norm_rel"][0]),
+            "trajectory": (S_TRAJ_RTOL, lambda r: max(
+                r["loss_rel"][1:] + r["grad_norm_rel"][1:], default=0.0)),
+            "update": (S_UPDATE_RTOL, lambda r: r["update_rel_rms"]),
+            "grads": (S_GRAD_RTOL, lambda r: r.get("grad_rel_rms"))}
+    train = {n: r for n, r in readings.items()
+             if r is not None and "loss_rel" in r}
+    out = {}
+    for key, (bound, read) in keys.items():
+        sound = [read(r) for n, r in train.items()
+                 if not n.endswith(S_FAULT) and read(r) is not None]
+        faulty = [read(r) for n, r in train.items()
+                  if n.endswith(S_FAULT) and read(r) is not None]
+        out[key] = [max(sound, default=None), bound,
+                    min(faulty, default=None)]
+    return out
+
+
+def check_zero_job(dev, name, rs, refs, paths):
+    """One phase (s) job's checks; its launch counts into ``paths``."""
+    what = name.split()[0]
+    if what == "s4":
+        out = check_zero_serve(dev, rs, refs["serve"])
+        paths["zero_serve_qwen2_7b"] = {
+            k: sum(x[m]["counts"][k] for x in rs
+                   for m in ("greedy", "sampled"))
+            for k in rs[0]["greedy"]["counts"]}
+    else:
+        key = {"s1": "clf", "s2": "qwen", "s3": "mamba"}[what]
+        out = check_zero_train(name, rs, refs[key])
+        if "held_logits" in rs[0]:
+            out.update(check_zero_clf(name, rs, refs[key],
+                                      configs.get("distilbert-imdb")))
+            paths["zero_classify_distilbert"] = {
+                k: sum(x["serve_launches"][k] for x in rs)
+                for k in rs[0]["serve_launches"]}
+    out["job_s"] = rs[0]["job_s"]
+    print(f"(s) {name}: {json.dumps(out, default=str)}", flush=True)
+    return out
+
+
 def run_tp(dev) -> dict:
-    """Phase (r): tensor-parallel params and a data axis on ranks sharing
-    the card (gloo), each layout held to the one-rank engine on the same
-    (tamed) params and requests. Returns the ranks' launch counts by run,
-    summed over ranks."""
+    """Phases (r) and (s) on one pair of rank spawns sharing the card
+    (gloo): (r) tensor-parallel params and a data axis, (s) the ZeRO-3
+    layouts, training and serving; each layout held to one rank on the
+    same (tamed) params and inputs. Returns the ranks' launch counts by
+    run, summed over ranks."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return _run_tp(dev, Path(tmp))
+
+
+def _run_tp(dev, tmp: Path) -> dict:
     torch.cuda.empty_cache()
     qcfg = R_CONFIG("qwen2-7b")
+    t_s = time.perf_counter()
+    zero, zero_refs = zero_jobs(dev, tmp)
+    s_ref_s = time.perf_counter() - t_s
     t0 = time.perf_counter()
     refs = {"qwen": one_rank_lm(dev, qcfg, sampled=True),
             "moe(2, 1)": one_rank_lm(dev, moe_config(False),
@@ -5359,6 +6052,8 @@ def run_tp(dev) -> dict:
             + [dict(kind="lm", arch="qwen2-7b", shape=s, seq=q, forced=qf,
                     name=f"qwen{s}{' seq_shard' if q else ''}")
                for s, q in R_QWEN if s[0] * s[1] == 4]}
+    for world, js in zero.items():
+        jobs[world] += js
     ranks, walls = {}, {}
     print(f"(r) one-rank references {ref_s:.1f} s; the card holds "
           f"{torch.cuda.memory_reserved(dev) / 1e9:.3f} GB here before "
@@ -5372,7 +6067,15 @@ def run_tp(dev) -> dict:
               flush=True)
         for job in js:
             ranks[job["name"]] = [g[job["name"]] for g in got]
-    summary, paths = {}, {}
+    zero_ranks = {k: ranks.pop(k) for k in list(ranks)
+                  if k.startswith("s")}
+    t_s = time.perf_counter()
+    paths = check_zero(dev, zero_ranks, zero_refs)
+    s_jobs = sum(rs[0]["job_s"] for rs in zero_ranks.values())
+    print(f"phase (s) ZeRO-3 layouts, on (r)'s spawns: references "
+          f"{s_ref_s:.1f} s, jobs {s_jobs:.1f} s, checks "
+          f"{time.perf_counter() - t_s:.1f} s")
+    summary = {}
     for name, rs in ranks.items():
         if name.startswith("distilbert"):
             summary[name] = check_clf(dev, rs,
@@ -5449,7 +6152,7 @@ def main():
         "(g) seq-sharded serving, qwen2-7b, one rank", run_seq_shard)
     torch.cuda.empty_cache()
     paths["serve_cluster_main"] = phase(
-        "(e) entry point serve_cluster.main",
+        "(e) entry point serve_cluster.run",
         lambda d: run_entry_point(d, seq_streams, job_tokens))
     torch.cuda.empty_cache()
     paths["paged_int8_qwen2_7b"] = phase(

@@ -14,6 +14,22 @@ when :func:`set_timing` is on (``STATS``, read by the card's smoke run).
 Under gloo (ranks sharing a card, or the CPU) a CUDA tensor is staged
 through the host for these; NCCL takes it as it is.
 
+Under autograd (a train step) each carries its conjugate as its backward
+(Megatron's f and g): :func:`model_copy` (the identity, whose backward
+sums the grad over "model") enters a split region and :func:`model_sum`
+(whose backward is the identity) leaves it; a gather's backward keeps
+the rank's block; :func:`data_sum` sums a statistic over the data axes
+with the identity as its backward.
+
+ZeRO-3 ("fsdp", "fsdp_tp"): :func:`param_gather` makes a unit's leaves
+(a layer, the embedding, the head) usable where the layout cuts them
+over the data axes, one all_gather per set of (axes, dtype); its
+backward sums each grad over those ranks and keeps the rank's block (a
+reduce-scatter). Ranks sharing one card move these shards through CUDA
+IPC (:class:`_CardLine`), as gloo's loopback is too slow for weights.
+:func:`whole` gathers a leaf whole (checkpoints), :func:`sum_over` sums
+tensors over any line of axes.
+
 Sequence-sharded decode: each rank holds one block of the KV cache's
 SEQUENCE dim, (B, S/M, KV, hd) for M ranks on "model",
 computes a flash-style partial softmax over it (the
@@ -45,11 +61,14 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.multiprocessing.reductions import reduce_tensor
 
 from repro_torch.dist import context as ctx
+from repro_torch.dist.sharding import Sharding
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_partials_ref, row_lengths)
+from repro_torch.tree import tree_leaves_with_path, tree_map_with_path
 
 # None = the default (the kernel on CUDA tensors, the plain version on CPU
 # tensors); True/False force the kernel wrapper or the plain version
@@ -184,21 +203,79 @@ def _line(axis):
     return ctx.dp_group(mesh), ctx.dp_size(mesh)
 
 
+def _index(axis) -> int:
+    """This rank's block index along ``axis`` ("model" or "data")."""
+    mesh = ctx.get_mesh()
+    return mesh.coord("model") if axis == "model" else ctx.dp_index(mesh)
+
+
+class _Conjugate(torch.autograd.Function):
+    """``fwd(x)`` in the forward pass and ``bwd(grad)`` in the backward:
+    a collective and its conjugate (Megatron's f and g)."""
+
+    @staticmethod
+    def forward(ctx_, x, fwd, bwd):
+        ctx_.bwd = bwd
+        return fwd(x)
+
+    @staticmethod
+    def backward(ctx_, grad):
+        return ctx_.bwd(grad.contiguous()), None, None
+
+
+def _conjugate(x, fwd, bwd):
+    """``fwd(x)``, with ``bwd`` as its backward where autograd records
+    ``x``; plain ``fwd(x)`` elsewhere (serving)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Conjugate.apply(x, fwd, bwd)
+    return fwd(x)
+
+
+def _summed(group):
+    """A function of ``t``: its SUM over ``group`` in fp32, returned in
+    ``t``'s dtype (one counted all_reduce)."""
+    def total(t):
+        def run(u):
+            u = u.float().contiguous()
+            torch.distributed.all_reduce(u, group=group)
+            return u
+        return _counted("all_reduce", lambda u: _staged(run, u, group),
+                        t).to(t.dtype)
+    return total
+
+
 def model_sum(x):
     """Sum of ``x`` over the "model" axis (the identity on one rank): the
     all_reduce after a row-split matmul. Summed in fp32 and returned in
-    ``x``'s dtype."""
+    ``x``'s dtype. Its backward is the identity: the grad of a sum every
+    rank holds whole is every rank's."""
     line = _line("model")
     if line is None:
         return x
-    group = line[0]
+    return _conjugate(x, _summed(line[0]), lambda g: g)
 
-    def run(t):
-        t = t.float().contiguous()
-        torch.distributed.all_reduce(t, group=group)
-        return t
-    return _counted("all_reduce", lambda t: _staged(run, t, group),
-                    x).to(x.dtype)
+
+def model_copy(x):
+    """``x`` as it is, entering a region split over "model" (a
+    column-split matmul, a rank's heads or experts); its backward sums
+    the grad over "model", since each rank's grad holds only its own
+    block's share. The identity on one rank and outside autograd."""
+    line = _line("model")
+    if line is None:
+        return x
+    return _conjugate(x, lambda t: t, _summed(line[0]))
+
+
+def data_sum(x):
+    """Sum of ``x`` over the data axes, with the identity as its
+    backward: for a statistic every data shard adds its rows to (the MoE
+    load-balancing loss's counts and probability sums) whose result each
+    rank's loss holds once, the grads summed over the data axes after the
+    backward pass then count every row once."""
+    line = _line("data")
+    if line is None:
+        return x
+    return _conjugate(x, _summed(line[0]), lambda g: g)
 
 
 def _gather(x, dim: int, axis: str, kind: str):
@@ -212,18 +289,28 @@ def _gather(x, dim: int, axis: str, kind: str):
         parts = [torch.empty_like(t) for _ in range(n)]
         torch.distributed.all_gather(parts, t, group=group)
         return torch.cat(parts, dim=dim)
-    return _counted(kind, lambda t: _staged(run, t, group), x)
+
+    at = _index(axis) * x.shape[dim]  # read here: autograd runs a CUDA
+    # backward on a thread of its own, without this one's mesh
+
+    def mine(g):  # the grad of this rank's block
+        return g.narrow(dim, at, x.shape[dim])
+    return _conjugate(
+        x, lambda t: _counted(kind, lambda u: _staged(run, u, group), t),
+        mine)
 
 
 def model_gather(x, dim: int = -1):
     """The "model" ranks' blocks of ``x`` concatenated along ``dim`` in
-    rank order (``x`` on one rank)."""
+    rank order (``x`` on one rank); the backward keeps this rank's block
+    of the grad."""
     return _gather(x, dim, "model", "all_gather_model")
 
 
 def data_gather(x, dim: int = 0):
     """The data shards' rows of ``x`` concatenated along ``dim`` in shard
-    order (``x`` without a data axis)."""
+    order (``x`` without a data axis); the backward keeps this rank's
+    rows of the grad."""
     return _gather(x, dim, "data", "all_gather_data")
 
 
@@ -244,6 +331,210 @@ def data_broadcast(x, src_index: int):
         torch.distributed.broadcast(t, src=src, group=group)
         return t
     return _counted("broadcast", lambda t: _staged(run, t, group), x)
+
+
+# ---------------------------------------------------------------------------
+# Params cut over the data axes (ZeRO-3)
+# ---------------------------------------------------------------------------
+
+
+def _group_of(mesh, axes):
+    group = mesh.group(axes)
+    if group is None:
+        raise ValueError(f"{mesh} has no process group on {axes}")
+    return group
+
+
+def line_size(mesh, axes) -> int:
+    """Ranks along the line of ``axes`` taken together."""
+    return int(np.prod([mesh.shape[a] for a in ctx.line_axes(mesh, axes)]
+                       or [1]))
+
+
+class _CardLine:
+    """The ranks of one process group that share ONE card (gloo, where
+    NCCL refuses them): each rank's device buffer is mapped into every
+    rank of the group through CUDA IPC once, so a gather or a
+    reduce-scatter reads the peers' memory in place on the card instead
+    of staging through the host (gloo moves a layer's 0.1 GB at about 0.5
+    GB/s on loopback). Each buffer has two slots used in turn: a rank
+    writes its slot, waits for its copy, and meets the others at a gloo
+    barrier; it then reads every rank's slot. A rank reaches the next
+    barrier only after its reads ran (the device is synchronised first),
+    so a slot is written again only when every rank has read it."""
+
+    def __init__(self, group, device):
+        self.group, self.device = group, device
+        self.me = torch.distributed.get_rank(group)
+        self.n = torch.distributed.get_world_size(group)
+        self.cap, self.slot, self.mine, self.bufs = 0, 0, None, None
+
+    def _grow(self, nbytes: int):
+        # every rank moves the same payload, so every rank grows here, to
+        # the payload rounded up to 16 MiB (the card is shared: no slack)
+        self.cap = -(-nbytes // 2 ** 24) * 2 ** 24
+        self.mine = self.bufs = None
+        self.mine = torch.empty(2 * self.cap, dtype=torch.uint8,
+                                device=self.device)
+        handles = [None] * self.n
+        torch.distributed.all_gather_object(
+            handles, reduce_tensor(self.mine), group=self.group)
+        self.bufs = [self.mine if i == self.me else fn(*args)
+                     for i, (fn, args) in enumerate(handles)]
+
+    def exchange(self, t) -> list:
+        """Every rank's ``t`` (same shape everywhere), as views of their
+        slots, in group rank order."""
+        nbytes = t.numel() * t.element_size()
+        if nbytes > self.cap:
+            self._grow(nbytes)
+        off = self.slot * self.cap
+        self.slot ^= 1
+
+        def view(buf):
+            return buf[off:off + nbytes].view(t.dtype).view(t.shape)
+        view(self.mine).copy_(t)
+        torch.cuda.synchronize(self.device)
+        torch.distributed.barrier(group=self.group)
+        return [view(b) for b in self.bufs]
+
+
+# by the group's ranks: every mesh built over the same ranks (one a job)
+# shares one line and its buffers
+_CARD_LINES: Dict[tuple, _CardLine] = {}
+
+
+def _card_line(group, t):
+    """The :class:`_CardLine` of ``group``'s ranks where ``t`` lies on a
+    card they share (a CUDA tensor under gloo); None elsewhere (the CPU,
+    or NCCL)."""
+    if t.device.type != "cuda" or \
+            torch.distributed.get_backend(group) != "gloo":
+        return None
+    key = tuple(torch.distributed.get_process_group_ranks(group))
+    line = _CARD_LINES.get(key)
+    if line is None:
+        line = _CARD_LINES[key] = _CardLine(group, t.device)
+    return line
+
+
+def _reduce_scatter(g, group, index: int, n: int):
+    """Row ``index`` of the SUM of ``g`` (n, L) over ``group``, summed in
+    fp32: NCCL's reduce_scatter; on a shared card, the peers' rows read in
+    place; on the CPU, gloo's all_reduce and the rank's row (gloo has no
+    reduce_scatter)."""
+    def run(t):
+        t = t.contiguous()
+        line = _card_line(group, t)
+        if line is not None:
+            return sum(p[index].float() for p in line.exchange(t)
+                       ).to(g.dtype)
+        t = t.float()
+        if torch.distributed.get_backend(group) == "nccl":
+            out = torch.empty_like(t[0])
+            torch.distributed.reduce_scatter_tensor(out, t, group=group)
+            return out.to(g.dtype)
+        torch.distributed.all_reduce(t, group=group)
+        return t[index].to(g.dtype)
+    return _counted("reduce_scatter_param", run, g)
+
+
+def _gather_flat(flat, axes):
+    """(n, L): every rank's ``flat`` (L,) along the line of ``axes``, in
+    block order; the backward sums the grad over the line and keeps this
+    rank's row (a reduce-scatter)."""
+    mesh = ctx.get_mesh()
+    group, n = _group_of(mesh, axes), line_size(mesh, axes)
+    index = ctx.line_index(mesh, axes)
+
+    def run(t):
+        t = t.contiguous()
+        line = _card_line(group, t)
+        if line is not None:
+            return torch.stack(line.exchange(t))
+        out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                          device=t.device)
+        torch.distributed.all_gather(list(out.unbind(0)), t, group=group)
+        return out
+    return _conjugate(
+        flat, lambda t: _counted("all_gather_param", run, t),
+        lambda g: _reduce_scatter(g, group, index, n))
+
+
+def param_gather(tree, shardings):
+    """The usable params of one unit (a layer's leaves, the embedding):
+    every leaf of ``tree`` whose ``Sharding`` has a ZeRO dim is gathered
+    whole along it over its ZeRO axes, the rest kept as they are (whole,
+    or this rank's "model" block). The leaves cut over the same axes with
+    the same dtype travel in ONE all_gather, packed flat. Under autograd
+    the backward sums each leaf's grad over those ranks and keeps this
+    rank's block: the grad comes out cut as the leaf is."""
+    flat = list(tree_leaves_with_path(tree))
+    cuts = dict(tree_leaves_with_path(
+        shardings, lambda x: isinstance(x, Sharding)))
+    out, packs = {}, {}
+    for path, t in flat:
+        sh = cuts.get(path)
+        if sh is None or not sh.zero:
+            out[path] = t
+            continue
+        packs.setdefault((sh.zero_axes, t.dtype), []).append(
+            (path, t, sh.zero[0]))
+    for (axes, _), items in packs.items():
+        rows = _gather_flat(torch.cat([t.reshape(-1) for _, t, _ in items]),
+                            axes)
+        at = 0
+        for path, t, dim in items:
+            blocks = rows[:, at:at + t.numel()].reshape(
+                (rows.shape[0],) + tuple(t.shape)).unbind(0)
+            out[path] = torch.cat(blocks, dim=dim)
+            at += t.numel()
+    return tree_map_with_path(lambda p, _: out[p], tree)
+
+
+def gathered(sub, *path):
+    """``sub``, the params at ``path`` of the whole tree (a leaf or a
+    subtree), ready to use: gathered by :func:`param_gather` where the
+    ambient ``dist.context.param_layout`` cuts it over the data axes, as
+    it is otherwise. The model code calls this at the head of each unit
+    (a layer, the embedding, the head), so outside autograd at most one
+    unit's gathered leaves live at a time."""
+    layout = ctx.get_param_layout()
+    if layout is None:
+        return sub
+    for key in path:
+        layout = layout[key]
+    return param_gather(sub, layout)
+
+
+def whole(t, sharding):
+    """The whole tensor of which ``t`` is this rank's block as
+    ``sharding`` cuts it (every cut dim gathered over its axes, ZeRO and
+    "model" alike): the ranks of each cut's line all take part. For a
+    checkpoint, outside autograd."""
+    for dim, cut in enumerate(sharding.cuts):
+        if cut is None:
+            continue
+        rows = _gather_flat(t.detach().reshape(-1), cut[0])
+        t = torch.cat(rows.reshape((rows.shape[0],) + tuple(t.shape))
+                      .unbind(0), dim=dim)
+    return t
+
+
+def sum_over(tensors, axes):
+    """Each of ``tensors`` summed over the line of ``axes`` (the grads of
+    leaves whole over a batch axis), packed per dtype into one all_reduce
+    in fp32; the tensors themselves where the line holds one rank."""
+    mesh = ctx.get_mesh()
+    if not tensors or line_size(mesh, axes) <= 1:
+        return list(tensors)
+    total = _summed(_group_of(mesh, axes))
+    flat = total(torch.cat([t.reshape(-1).float() for t in tensors]))
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].view_as(t).to(t.dtype))
+        at += t.numel()
+    return out
 
 
 def _shard_plan(mesh, seq_shards: int):

@@ -21,6 +21,13 @@ its tokens are the whole batch or one data shard of it. The reference's
 ``constrain``/``constrain_dims`` are GSPMD placement hints with no
 counterpart in explicit layouts: the port's tensors already have the
 planner's local shapes (ROADMAP Queue 3, differences by design).
+
+Where params are cut over the data axes (ZeRO-3), :func:`param_layout`
+declares their shardings so the model code gathers each unit before
+use; :func:`batch_axes` sets the batch axes for a block (every axis
+under "fsdp", :func:`fsdp_batch_axes`). The state is thread-local, and
+autograd runs a CUDA backward on a thread of its own: :func:`snapshot`
+and :func:`restored` carry it there (a remat layer's recomputation).
 """
 from __future__ import annotations
 
@@ -72,11 +79,12 @@ class Mesh:
 
     def group(self, axis):
         """The process group along ``axis``, or along a tuple of axes
-        (their lines taken together, as the data axes are); None when it
-        has one rank."""
-        if isinstance(axis, tuple) and len(axis) == 1:
-            axis = axis[0]
-        return self.groups.get(axis)
+        (their lines taken together, as the data axes are, or every axis
+        at once); None when it has one rank. Axes of size 1 drop out."""
+        axes = line_axes(self, axis)
+        if not axes:
+            return None
+        return self.groups.get(axes[0] if len(axes) == 1 else axes)
 
     def rank_at(self, **coords) -> int:
         """The rank at this rank's coordinates with ``coords`` replaced
@@ -86,6 +94,24 @@ class Mesh:
 
     def __repr__(self):
         return f"Mesh({self.shape}, rank={self.rank})"
+
+
+def line_axes(mesh, axes) -> tuple:
+    """``axes`` (a name or a tuple of names) in the mesh's own order,
+    without the axes of size 1: the key of the line the ranks along them
+    form. Every rank of the line holds block ``line_index`` of a dim cut
+    over them, and the line's process group ranks them in that order."""
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    return tuple(a for a in mesh.axis_names
+                 if a in axes and int(mesh.shape[a]) > 1)
+
+
+def line_index(mesh, axes) -> int:
+    """This rank's row-major index along ``axes`` taken together."""
+    index = 0
+    for a in line_axes(mesh, axes):
+        index = index * int(mesh.shape[a]) + mesh.coord(a)
+    return index
 
 
 # ---------------------------------------------------------------------------
@@ -147,6 +173,26 @@ def dp_axes(mesh=None) -> tuple:
     return tuple(a for a in mesh.axis_names if a != "model")
 
 
+@contextmanager
+def batch_axes(axes: Optional[Sequence[str]]):
+    """:func:`set_batch_axes` for the block inside, restored on exit."""
+    prev = _get("batch_axes")
+    set_batch_axes(axes)
+    try:
+        yield
+    finally:
+        _STATE.batch_axes = prev
+
+
+def fsdp_batch_axes(mesh=None) -> tuple:
+    """The batch axes of the "fsdp" layout: every mesh axis, "model"
+    included, as the reference's pure-FSDP cells set them
+    (``set_batch_axes``); a train step under "fsdp" cuts its rows over
+    them."""
+    mesh = mesh if mesh is not None else get_mesh()
+    return tuple(mesh.axis_names) if mesh is not None else ()
+
+
 def dp_size(mesh=None) -> int:
     """Ranks along the data axes taken together (1 without a mesh)."""
     mesh = mesh if mesh is not None else get_mesh()
@@ -176,6 +222,31 @@ def dp_group(mesh=None):
 
 
 # ---------------------------------------------------------------------------
+# Params cut over the data axes (ZeRO-3)
+# ---------------------------------------------------------------------------
+
+
+@contextmanager
+def param_layout(shardings):
+    """Declare that the params the model code reads are this rank's shards
+    as ``shardings`` (a tree of ``dist.sharding.Sharding`` mirroring the
+    params) cuts them: a leaf cut over the data axes is gathered before
+    use (``dist.collectives.gathered``). ``None`` declares leaves ready to
+    use. Nests like :func:`mesh_context`."""
+    prev = _get("layout")
+    _STATE.layout = shardings
+    try:
+        yield
+    finally:
+        _STATE.layout = prev
+
+
+def get_param_layout():
+    """The shardings of :func:`param_layout`, or None."""
+    return _get("layout")
+
+
+# ---------------------------------------------------------------------------
 # Row sharding of the activations
 # ---------------------------------------------------------------------------
 
@@ -191,6 +262,30 @@ def row_shard(n: int, index: int):
         yield
     finally:
         _STATE.rows = prev
+
+
+_FIELDS = ("mesh", "batch_axes", "layout", "rows")
+
+
+def snapshot() -> dict:
+    """This thread's context (mesh, batch axes, param layout, rows), for
+    :func:`restored` on another thread: autograd runs a CUDA backward,
+    and a remat layer's recomputation in it, on a thread of its own."""
+    return {f: _get(f) for f in _FIELDS}
+
+
+@contextmanager
+def restored(state: dict):
+    """The context of :func:`snapshot` on this thread, the previous one
+    back on exit."""
+    prev = snapshot()
+    for f, v in state.items():
+        setattr(_STATE, f, v)
+    try:
+        yield
+    finally:
+        for f, v in prev.items():
+            setattr(_STATE, f, v)
 
 
 def current_rows() -> Tuple[int, int]:

@@ -39,7 +39,7 @@ import numpy as np
 
 from repro_torch.dist import context as ctx
 from repro_torch.models.common import param_bytes, tree_map_spec
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map
 
 # logical axes eligible for tensor parallelism, in priority order
 TP_CANDIDATES = ("experts", "d_ff", "heads", "kv_heads", "vocab")
@@ -230,10 +230,14 @@ class Sharding:
     """This rank's slice of one tensor: the planner's ``spec`` and, per
     dim, None (whole) or the cut ``(axes, index, count)``: the dim is cut
     into ``count`` equal blocks over ``axes`` and this rank holds block
-    ``index``."""
+    ``index``. ``zero`` lists the dims cut over the ZeRO axes of the
+    layout ("fsdp": every axis; "fsdp_tp": the data axes): the model code
+    gathers those before use (``dist.collectives.param_gather``) and
+    computes on the rest of the cut, the "model" split."""
 
     spec: PartitionSpec
     cuts: Tuple[Optional[tuple], ...]
+    zero: Tuple[int, ...] = ()
 
     def local_shape(self, shape) -> tuple:
         return tuple(n if c is None else n // c[2]
@@ -251,30 +255,133 @@ class Sharding:
     def replicated(self) -> bool:
         return all(c is None for c in self.cuts)
 
+    def axes(self, dims=None) -> tuple:
+        """The mesh axes that cut ``dims`` (default every dim)."""
+        dims = range(len(self.cuts)) if dims is None else dims
+        return tuple(a for d in dims if self.cuts[d] is not None
+                     for a in _entry_axes(self.cuts[d][0]))
 
-def rank_sharding(spec, mesh) -> Sharding:
-    """The :class:`Sharding` of ``spec`` for ``mesh``'s rank."""
-    cuts = []
-    for e in spec:
+    @property
+    def zero_axes(self) -> tuple:
+        """The axes whose ranks each hold a block of the ZeRO-cut dim."""
+        return self.axes(self.zero)
+
+    def counted_here(self, mesh) -> bool:
+        """Whether this rank counts the tensor's elements in a sum over
+        every rank (the grad norm): a tensor whole over an axis counts on
+        that axis's coordinate 0 only, so each element counts once."""
+        cut = set(self.axes())
+        return all(mesh.coord(a) == 0 for a in mesh.axis_names
+                   if a not in cut)
+
+
+def _entry_axes(e) -> tuple:
+    return e if isinstance(e, tuple) else (e,)
+
+
+def zero_axes(strategy: str, mesh) -> tuple:
+    """The mesh axes ``strategy`` cuts params over only to spread their
+    memory (ZeRO-3), to be gathered before use: every axis for "fsdp",
+    the data axes for "fsdp_tp", none for "tp"."""
+    if strategy == "fsdp":
+        return tuple(mesh.axis_names)
+    if strategy == "fsdp_tp":
+        return tuple(a for a in mesh.axis_names if a != "model")
+    return ()
+
+
+def rank_sharding(spec, mesh, zero=()) -> Sharding:
+    """The :class:`Sharding` of ``spec`` for ``mesh``'s rank; the dims cut
+    over axes of ``zero`` (:func:`zero_axes`) are its ZeRO dims. A dim cut
+    over ZeRO axes and other axes at once raises, as does a cut whose axes
+    run against the mesh's order (the lines' process groups rank their
+    members in that order)."""
+    cuts, zdims = [], []
+    for d, e in enumerate(spec):
         if e is None:
             cuts.append(None)
             continue
-        axes = e if isinstance(e, tuple) else (e,)
+        axes = _entry_axes(e)
+        if list(axes) != [a for a in mesh.axis_names if a in axes]:
+            raise ValueError(f"{spec}: axes {axes} against the mesh's "
+                             f"order {mesh.axis_names}")
+        inside = [a in zero for a in axes]
+        if all(inside):
+            zdims.append(d)
+        elif any(inside):
+            raise ValueError(f"{spec}: dim {d} cut over ZeRO and "
+                             f"tensor-parallel axes at once")
         index, count = 0, 1
         for a in axes:
             n = int(mesh.shape[a])
             index = index * n + mesh.coord(a)
             count *= n
         cuts.append((e, index, count))
-    return Sharding(P(*spec), tuple(cuts))
+    if len(zdims) > 1:
+        raise ValueError(f"{spec}: more than one dim cut over {zero}")
+    return Sharding(P(*spec), tuple(cuts), tuple(zdims))
 
 
 def param_shardings(param_specs, strategy: str, mesh):
     """Tree of :class:`Sharding` (this rank's slice of every leaf)
     mirroring an AxSpec param tree."""
+    zero = zero_axes(strategy, mesh)
     return tree_map_spec(
-        lambda s: rank_sharding(_spec_for(s, strategy, mesh), mesh),
+        lambda s: rank_sharding(_spec_for(s, strategy, mesh), mesh, zero),
         param_specs)
+
+
+def state_shardings(state_specs, mesh, strategy: str):
+    """Tree of :class:`Sharding` mirroring an optimizer's state spec tree
+    (``optimizer.state_specs``): the state is cut as the params are, its
+    ``step`` whole."""
+    zero = zero_axes(strategy, mesh)
+    return tree_map(lambda p: rank_sharding(p, mesh, zero), state_specs,
+                    is_leaf=lambda x: isinstance(x, PartitionSpec))
+
+
+def rank_param_bytes(param_specs, strategy: str, mesh) -> int:
+    """Bytes of the params one rank holds under ``strategy`` (the
+    largest, where cuts leave ranks unequal: they never do, every cut
+    divides its dim)."""
+    def one(s):
+        sh = rank_sharding(_spec_for(s, strategy, mesh), mesh)
+        return math.prod(sh.local_shape(s.shape)) * s.dtype.itemsize
+    return sum(tree_leaves(tree_map_spec(one, param_specs)))
+
+
+def whole_over_data(shardings, batch_axes, mesh) -> dict:
+    """path -> the batch axes (of size > 1) that a leaf's ZeRO cut does
+    not span, for every leaf that has some: the layout leaves it whole
+    over them (``sanitize_spec`` found no dim they divide, or the layout
+    cuts nothing over data), so its grad is summed over them explicitly
+    after the backward pass (the gather's backward sums over the rest)."""
+    out = {}
+    for path, sh in tree_leaves_with_path(
+            shardings, lambda x: isinstance(x, Sharding)):
+        axes = tuple(a for a in batch_axes if int(mesh.shape.get(a, 1)) > 1
+                     and a not in sh.zero_axes)
+        if axes:
+            out[path] = axes
+    return out
+
+
+def check_layout(cfg, mesh, strategy: str, seq_shard: bool = False):
+    """Raise, naming ROADMAP Queue 1 #4.5, where a layout would split what
+    the port does not split yet: encoder-decoder layers on more than one
+    rank, SSM layers under a "model" axis that splits them ("fsdp"
+    gathers every leaf whole; ``seq_shard`` keeps the params whole)."""
+    if int(mesh.devices.size) > 1 and cfg.encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder layers under a mesh of more than "
+            f"one rank are not ported yet (ROADMAP.md Queue 1 #4.5, SSM "
+            f"and encoder-decoder layers under 'model')")
+    if (strategy != "fsdp" and not seq_shard and cfg.has_mixer("ssm")
+            and ctx.axis_size("model", mesh) > 1):
+        raise NotImplementedError(
+            f"{cfg.name}: SSM layers under a 'model' axis are not ported "
+            f"yet (ROADMAP.md Queue 1 #4.5, SSM and encoder-decoder "
+            f"layers under 'model')")
 
 
 def drop_axis(spec, axis: str) -> PartitionSpec:

@@ -275,11 +275,18 @@ def main(argv=None) -> dict:
             raise SystemExit(code)
         return {}
     dev = init_from_env(args.device)
+    return run(dev, configs.smoke("qwen2-7b") if dev.type == "cpu"
+               else configs.get("qwen2-7b"))
+
+
+def run(dev, cfg) -> dict:
+    """The example on this rank's ``dev`` for model ``cfg``: continuous
+    batching, greedy then fused-sampled, over the seq-sharded shared cache
+    of the ranks' (1, ranks) mesh, then (rank 0) the orchestrated
+    generation job. Returns each run's results by name."""
     rank, world = rank_env()
     say = print if rank == 0 else (lambda *a, **k: None)
     sizes = CPU_SIZES if dev.type == "cpu" else CARD_SIZES
-    cfg = (configs.smoke("qwen2-7b") if dev.type == "cpu"
-           else configs.get("qwen2-7b"))
 
     # --- continuous batching over one seq-sharded shared ragged cache ---
     mesh = make_host_mesh((1, world), ("data", "model"))

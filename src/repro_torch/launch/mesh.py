@@ -116,8 +116,9 @@ def init_from_env(device) -> torch.device:
 def make_host_mesh(shape=(2, 4), axes=("data", "model")) -> Mesh:
     """A mesh of ``shape`` over the ranks of the default process group
     (one rank without one), rank r at row-major position r. Builds one
-    process group per line of every axis longer than 1, and of the data
-    axes taken together when more than one of them is (every rank makes
+    process group per line of every axis longer than 1, of the data
+    axes taken together when more than one of them is, and of every axis
+    at once (the world) when that is another set again (every rank makes
     every group, in the same order, as ``new_group`` requires), and keeps
     this rank's."""
     shape = tuple(int(n) for n in shape)
@@ -128,10 +129,14 @@ def make_host_mesh(shape=(2, 4), axes=("data", "model")) -> Mesh:
                          f"{int(np.prod(shape))} ranks; {world} running")
     grid = np.arange(world).reshape(shape)
     groups: Dict[object, object] = {}
-    lined = [(axis,) for axis, n in zip(axes, shape) if n > 1]
-    data = tuple(a for (a,) in lined if a != "model")
+    every = tuple(axis for axis, n in zip(axes, shape) if n > 1)
+    lined = [(axis,) for axis in every]
+    data = tuple(a for a in every if a != "model")
     if len(data) > 1:  # the data axes taken together carry the batch
         lined.append(data)
+    if len(every) > 1 and every != data:  # the world: a leaf cut over
+        # every axis ("fsdp"), the grad norm
+        lined.append(every)
     for line_axes in lined:
         dims = [axes.index(a) for a in line_axes]
         rest = [i for i in range(len(axes)) if i not in dims]

@@ -98,9 +98,18 @@ def _project(x, w):
 
 
 def project_qkv(cfg: ModelConfig, p, x, kv_x=None):
-    """x: (B,S,D) -> q (B,S,H,hd), k/v (B,T,KV,hd)."""
-    kv_x = x if kv_x is None else kv_x
-    q = _project(x, p["wq"])
+    """x: (B,S,D) -> q (B,S,H,hd), k/v (B,T,KV,hd). An input entering
+    projections split over "model" passes ``collectives.model_copy``,
+    whose backward sums its grad over the ranks' heads."""
+    q_split = p["wq"].shape[1] < cfg.n_heads
+    kv_split = p["wk"].shape[1] < cfg.n_kv_heads
+    xq = collectives.model_copy(x) if q_split else x
+    if kv_x is None and q_split and kv_split:
+        kv_x = xq
+    else:
+        kv_x = x if kv_x is None else kv_x
+        kv_x = collectives.model_copy(kv_x) if kv_split else kv_x
+    q = _project(xq, p["wq"])
     k = _project(kv_x, p["wk"])
     v = _project(kv_x, p["wv"])
     if "bq" in p:
@@ -153,10 +162,12 @@ def kv_group(cfg: ModelConfig, hl: int, index: int) -> Tuple[int, int]:
 
 def _kv_view(t, sel, contiguous: bool):
     """The kv heads ``sel`` of a (..., KV, hd) tensor (all when None);
-    copied where a kernel wants it contiguous."""
+    copied where a kernel wants it contiguous. The whole k/v every rank
+    computes enters the rank's heads here (``collectives.model_copy``:
+    its grad is summed over "model" in the backward)."""
     if sel is None:
         return t
-    t = t[..., sel[0]:sel[0] + sel[1], :]
+    t = collectives.model_copy(t[..., sel[0]:sel[0] + sel[1], :])
     return t.contiguous() if contiguous else t
 
 

@@ -5,7 +5,11 @@ Counterpart of ``repro.models.mlp``. Under a "model" axis the planner cuts
 Megatron split): each rank computes its d_ff block, the partial outputs
 are summed over "model" (``dist.collectives.model_sum``) and ``b2``,
 which the planner leaves whole, is added once after the sum. A rank
-holding the whole d_ff computes it whole, with no sum.
+holding the whole d_ff computes it whole, with no sum. Under autograd the
+input enters the split through ``collectives.model_copy`` (its grad
+summed over "model" in the backward) and the sum's backward is the
+identity: Megatron's conjugate pair, so a "tp" train step gets whole
+grads.
 """
 from __future__ import annotations
 
@@ -37,8 +41,9 @@ def mlp_apply(cfg: ModelConfig, p, x, d_ff: Optional[int] = None,
     ``cfg.d_ff``): a ``w1`` narrower than it is this rank's d_ff block,
     whose output is summed over "model" (``reduce=False`` returns the
     partial sum, ``b2`` not added, for a caller that sums it itself)."""
-    y = _mlp_partial(cfg, p, x)
-    if p["w1"].shape[1] < (d_ff or cfg.d_ff):
+    split = p["w1"].shape[1] < (d_ff or cfg.d_ff)
+    y = _mlp_partial(cfg, p, collectives.model_copy(x) if split else x)
+    if split:
         if not reduce:
             return y
         y = collectives.model_sum(y)

@@ -97,10 +97,21 @@ def _route(mc: MoEConfig, p, xt):
     return gate_vals, gate_idx, probs
 
 
-def _lb_loss(mc: MoEConfig, gate_idx, probs):
-    frac_tokens = F.one_hot(gate_idx[:, 0], mc.num_experts).float().mean(0)
-    frac_probs = probs.mean(0)
-    return mc.num_experts * torch.sum(frac_tokens * frac_probs)
+def _lb_loss(mc: MoEConfig, gate_idx, probs, shards: int = 1):
+    """E x sum over experts of (share of first choices) x (mean prob).
+    With ``shards`` > 1 the tokens are one data shard of the batch: the
+    per-expert counts and probability sums are summed over the data axes
+    first (``collectives.data_sum``), so the loss is the whole batch's,
+    as the reference's means over every token."""
+    e = mc.num_experts
+    if shards == 1:
+        frac_tokens = F.one_hot(gate_idx[:, 0], e).float().mean(0)
+        frac_probs = probs.mean(0)
+        return e * torch.sum(frac_tokens * frac_probs)
+    sums = collectives.data_sum(torch.cat([
+        F.one_hot(gate_idx[:, 0], e).float().sum(0), probs.sum(0)]))
+    n = gate_idx.shape[0] * shards
+    return e * torch.sum((sums[:e] / n) * (sums[e:] / n))
 
 
 def _positions_in_expert(mc: MoEConfig, gate_idx, c: int):
@@ -239,7 +250,9 @@ def _routed_split(mc: MoEConfig, p) -> bool:
 
 def moe_apply(cfg: ModelConfig, mc: MoEConfig, p, x, impl: str = "auto"):
     """x: (B,S,D) or (T,D). Returns (y, {"lb_loss": scalar}); under a
-    data axis the loss is over the tokens this rank routed."""
+    data axis the loss is over the tokens of this rank's rows, and under
+    autograd (a train step) over the whole batch's, its counts and
+    probability sums summed over the data axes."""
     orig_shape = x.shape
     xt = x.reshape(-1, orig_shape[-1])
     shards, index = dctx.current_rows()
@@ -255,22 +268,33 @@ def moe_apply(cfg: ModelConfig, mc: MoEConfig, p, x, impl: str = "auto"):
         xt = collectives.data_gather(xt)
     elif shards > 1 and impl == "scatter":
         groups = 1  # this rank's rows are its own group
-    gate_vals, gate_idx, probs = _route(mc, p, xt)
+    # what enters a region split over "model" passes model_copy (its
+    # grad summed over "model" in the backward); the router's probs stay
+    # whole on every rank
+    routed = _routed_split(mc, p)
+    router_split = p["router"].shape[-1] < mc.num_experts
+    xt_tp = collectives.model_copy(xt) if routed or router_split else xt
+    gate_vals, gate_idx, probs = _route(mc, p,
+                                        xt_tp if router_split else xt)
+    gates = collectives.model_copy(gate_vals) if routed else gate_vals
     # ``groups`` equal, consecutive groups, each with its own capacity
     y = torch.cat([_IMPLS[impl](cfg, mc, p, *parts) for parts in zip(
-        xt.chunk(groups), gate_vals.chunk(groups), gate_idx.chunk(groups))])
+        (xt_tp if routed else xt).chunk(groups), gates.chunk(groups),
+        gate_idx.chunk(groups))])
     if gather:  # keep this rank's rows
         rows = slice(index * t_local, (index + 1) * t_local)
         y, xt = y[rows], xt[rows]
+        gate_idx, probs = gate_idx[rows], probs[rows]
     # partial sums over "model" are summed once, whole terms added after
-    partial, whole = (y, None) if _routed_split(mc, p) else (None, y)
+    partial, whole = (y, None) if routed else (None, y)
     if "shared" in p:
         shared_ff = mc.shared_ff or mc.expert_ff * mc.num_shared
         g = torch.sigmoid(xt.float() @ p["shared_gate"])
         sh = mlp_lib.mlp_apply(cfg, p["shared"], xt, d_ff=shared_ff,
                                reduce=False)
-        sh = sh * g.to(sh.dtype)
-        if p["shared"]["w1"].shape[1] < shared_ff:
+        split = p["shared"]["w1"].shape[1] < shared_ff
+        sh = sh * (collectives.model_copy(g) if split else g).to(sh.dtype)
+        if split:
             partial = sh if partial is None else partial + sh
             if "b2" in p["shared"]:
                 bias = p["shared"]["b2"].to(sh.dtype) * g.to(sh.dtype)
@@ -280,5 +304,8 @@ def moe_apply(cfg: ModelConfig, mc: MoEConfig, p, x, impl: str = "auto"):
     if partial is not None:
         part = collectives.model_sum(partial)
         whole = part if whole is None else whole + part
-    return whole.reshape(orig_shape), {"lb_loss": _lb_loss(mc, gate_idx,
-                                                           probs)}
+    # a train step sums the grads over the data axes, so its loss counts
+    # every data shard's tokens; serving discards the loss
+    lb = _lb_loss(mc, gate_idx, probs,
+                  shards if torch.is_grad_enabled() else 1)
+    return whole.reshape(orig_shape), {"lb_loss": lb}

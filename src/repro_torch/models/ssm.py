@@ -146,10 +146,14 @@ def ssm_forward(cfg: ModelConfig, sc: SSMConfig, p, u, *,
     cum = torch.cumsum(dtc * a, dim=2)  # (B,Nc,Q,H)
     cum_t = cum.permute(0, 3, 1, 2)     # (B,H,Nc,Q)
 
-    # intra-chunk (quadratic within a chunk)
+    # intra-chunk (quadratic within a chunk); the decay exponent is masked
+    # BEFORE exp: above the diagonal it is positive and, over a long
+    # chunk, overflows to inf, whose masked-out grad is then 0 x inf = NaN
+    # (the reference exponentiates first: ROADMAP Queue 3)
     att = torch.einsum("bzihn,bzjhn->bhzij", ch, bh)  # (B,H,Nc,Q,Q)
-    seg = torch.exp(cum_t[..., :, None] - cum_t[..., None, :])
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=u.device))
+    seg = torch.exp(torch.where(
+        mask, cum_t[..., :, None] - cum_t[..., None, :], float("-inf")))
     m = torch.where(mask, att * seg, 0.0)
     m = m * dtc.permute(0, 3, 1, 2)[..., None, :]  # x dt_j
     y_diag = torch.einsum("bhzij,bzjhp->bzihp", m, xh)

@@ -34,6 +34,15 @@ dim, (B, max_len / M, KV, hd) for M blocks over "model", with ``lengths``
 global (``Cache.seq_shards`` = M); prefill computes the whole prompt on
 every rank and keeps the rank's slice of its K/V.
 
+Under a layout that cuts params over the data axes ("fsdp", "fsdp_tp":
+``dist.context.param_layout``), each layer's leaves are gathered at the
+head of its step of the loop and dropped after it, and the embedding,
+final norm and head where they are used (``dist.collectives.gathered``):
+at most one gathered layer is alive outside autograd. Under autograd
+the gathered leaves a layer saves for its backward live until it runs,
+unless ``remat`` recomputes the layer, gather included, in the backward
+(FSDP's free-after-forward).
+
 ``forward`` honours ``RunConfig.remat`` under autograd, as the
 reference's ``_maybe_remat``: "full" recomputes each layer in the backward
 pass (``torch.utils.checkpoint``), "dots" keeps only the outputs of the
@@ -43,6 +52,7 @@ batched ``bmm`` recomputed).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -173,24 +183,47 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+@contextlib.contextmanager
+def _both(a, b):
+    with a, b:
+        yield
+
+
 def _maybe_remat(fn, run: RunConfig):
     """``fn`` as is ("none"), recomputed whole in the backward ("full"), or
-    recomputed but for its matmuls without batch dims ("dots")."""
+    recomputed but for its matmuls without batch dims ("dots"). The
+    recomputation runs under this thread's ``dist.context`` (mesh, rows,
+    param layout), restored on the backward's thread."""
     if run.remat == "none" or not torch.is_grad_enabled():
         return fn
-    if run.remat == "full":
-        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
-    if run.remat == "dots":
-        return lambda *a: ckpt.checkpoint(
-            fn, *a, use_reentrant=False,
-            context_fn=lambda: ckpt.create_selective_checkpoint_contexts(
-                _dots_policy))
-    raise ValueError(f"remat={run.remat!r} not in ('none', 'dots', 'full')")
+    if run.remat not in ("full", "dots"):
+        raise ValueError(
+            f"remat={run.remat!r} not in ('none', 'dots', 'full')")
+    state = dctx.snapshot()
+
+    def contexts():
+        fwd, rec = (ckpt.create_selective_checkpoint_contexts(_dots_policy)
+                    if run.remat == "dots" else
+                    (contextlib.nullcontext(), contextlib.nullcontext()))
+        return fwd, _both(rec, dctx.restored(state))
+    return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False,
+                                      context_fn=contexts)
 
 
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
+
+
+def _use(params, name: str):
+    """Top-level leaf ``name`` ready to use (``collectives.gathered``)."""
+    return collectives.gathered(params[name], name)
+
+
+def _use_block(p, layer: int):
+    """Layer ``layer``'s leaves ready to use: gathered at the head of the
+    layer and dropped after it, the unit of a ZeRO-3 gather."""
+    return collectives.gathered(p, "blocks", layer)
 
 
 def vocab_lookup(table, ids, n_rows: int):
@@ -214,28 +247,30 @@ def _embed_in(cfg: ModelConfig, params, tokens=None, embeddings=None,
     if embeddings is not None:
         x = embeddings.to(torch.bfloat16)
     else:
-        x = vocab_lookup(params["embed"].to(torch.bfloat16), tokens,
+        x = vocab_lookup(_use(params, "embed").to(torch.bfloat16), tokens,
                          cfg.vocab_size)
     if cfg.emb_scale:
         x = x * torch.tensor(math.sqrt(float(cfg.d_model)),
                              dtype=torch.float32).to(x.dtype)
     if cfg.pos == "learned":
-        x = x + vocab_lookup(params["pos_embed"], positions,
+        x = x + vocab_lookup(_use(params, "pos_embed"), positions,
                              cfg.max_position).to(x.dtype)
     return x
 
 
 def _lm_head(cfg: ModelConfig, params, x):
-    """Logits (fp32). A vocab-split head's blocks (each softcapped: the
-    cap is elementwise) are gathered over "model" into the whole
-    vocabulary."""
+    """Logits (fp32) of the final-normed ``x``. A vocab-split head's
+    blocks (each softcapped: the cap is elementwise) are gathered over
+    "model" into the whole vocabulary; ``x`` enters the split through
+    ``collectives.model_copy``."""
+    x = apply_norm(cfg, _use(params, "final_norm"), x)
     if cfg.num_labels:
-        return (x @ params["cls_head"].to(x.dtype)).float()
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"].to(x.dtype).T
-    else:
-        logits = x @ params["lm_head"].to(x.dtype)
-    logits = softcap(logits.float(), cfg.final_softcap)
+        return (x @ _use(params, "cls_head").to(x.dtype)).float()
+    w = (_use(params, "embed").T if cfg.tie_embeddings
+         else _use(params, "lm_head"))
+    if w.shape[-1] < cfg.vocab_size:
+        x = collectives.model_copy(x)
+    logits = softcap((x @ w.to(x.dtype)).float(), cfg.final_softcap)
     if logits.shape[-1] < cfg.vocab_size:
         logits = collectives.model_gather(logits, dim=-1)
     return logits
@@ -261,12 +296,12 @@ def forward(cfg: ModelConfig, run: RunConfig, params, *, tokens=None,
     for layer, p in enumerate(params["blocks"]):
         spec = cfg.pattern[layer % cfg.period]
         block = _maybe_remat(
-            lambda x, p, spec=spec: _apply_block_position(
-                cfg, run, spec, p, x, positions)[:2], run)
+            lambda x, p, spec=spec, layer=layer: _apply_block_position(
+                cfg, run, spec, _use_block(p, layer), x, positions)[:2],
+            run)
         x, lb = block(x, p)
         aux = aux + lb
     aux = aux / max(cfg.n_layers, 1)
-    x = apply_norm(cfg, params["final_norm"], x)
     if cfg.num_labels:  # encoder classifier: pool at [CLS] position 0
         return _lm_head(cfg, params, x[:, 0]), aux
     return _lm_head(cfg, params, x), aux
@@ -485,13 +520,12 @@ def prefill(cfg: ModelConfig, run: RunConfig, params, *, tokens=None,
     layers = []
     for layer, p in enumerate(params["blocks"]):
         spec = cfg.pattern[layer % cfg.period]
-        x, _, layer_cache = _apply_block_position(cfg, run, spec, p, x,
-                                                  positions, prefill=True)
+        x, _, layer_cache = _apply_block_position(
+            cfg, run, spec, _use_block(p, layer), x, positions, prefill=True)
         if spec.mixer.startswith("attn"):
             layer_cache = _kv_leaves(run, *layer_cache, max_len, lo, block)
         layers.append(layer_cache)
-    x_last = apply_norm(cfg, params["final_norm"], x[:, -1])
-    logits = _lm_head(cfg, params, x_last)
+    logits = _lm_head(cfg, params, x[:, -1])
     return logits, Cache(layers=tuple(layers),
                          lengths=torch.full((b,), s, dtype=torch.int32,
                                             device=ref.device),
@@ -532,6 +566,7 @@ def decode_step(cfg: ModelConfig, run: RunConfig, params, cache,
     for layer, p in enumerate(params["blocks"]):
         spec = cfg.pattern[layer % cfg.period]
         c = cache.layers[layer]
+        p = _use_block(p, layer)
         h = apply_norm(cfg, p["norm1"], x)
         if spec.mixer == "ssm":
             h, new = ssm_lib.ssm_decode(cfg, cfg.ssm, p["ssm"], h, c)
@@ -551,7 +586,6 @@ def decode_step(cfg: ModelConfig, run: RunConfig, params, cache,
                 v_scale=c.get("v_scale"))[0]
         x, _ = _mlp_residual(cfg, run, spec, p,
                              _mixer_residual(cfg, p, x, h))
-    x = apply_norm(cfg, params["final_norm"], x)
     logits = _lm_head(cfg, params, x[:, 0])
     cache.lengths.add_(1)
     return logits, cache
@@ -580,6 +614,7 @@ def extend_paged(cfg: ModelConfig, run: RunConfig, params, cache: PagedCache,
     for layer, p in enumerate(params["blocks"]):
         spec = cfg.pattern[layer % cfg.period]
         c = cache.layers[layer]
+        p = _use_block(p, layer)
         h = apply_norm(cfg, p["norm1"], x)
         h = attn_lib.attn_extend_layer_paged(
             cfg, p["attn"], h, c["k"], c["v"], table_row, start,
@@ -587,7 +622,6 @@ def extend_paged(cfg: ModelConfig, run: RunConfig, params, cache: PagedCache,
             k_scale=c.get("k_scale"), v_scale=c.get("v_scale"))[0]
         x, _ = _mlp_residual(cfg, run, spec, p,
                              _mixer_residual(cfg, p, x, h))
-    x = apply_norm(cfg, params["final_norm"], x[:, -1])
-    logits = _lm_head(cfg, params, x)
+    logits = _lm_head(cfg, params, x[:, -1])
     cache.lengths[row] = start + L
     return logits, cache

@@ -22,9 +22,10 @@ reference's planner (``strategy``, auto-picked with ``kind="infer"``;
     else whole on every rank, as ``input_shardings``), and every rank
     returns the whole batch's logits or tokens, gathered over the data
     axes. A shared cache holds only the rank's rows (``Cache.row_shards``):
-    an admission prefills on the ranks that own its row, which broadcast
-    the logits or token to the rest; an eviction touches the owners'
-    cache alone.
+    an admission prefills on the ranks that own its row (on every rank
+    where params are cut over the data axes, whose gathers span them),
+    which broadcast the logits or token to the rest; an eviction touches
+    the owners' cache alone.
   * ``seq_shard=True`` forces ``attn_impl="seq_shard"``: every dense
     cache holds this rank's block of the sequence dim
     (``dist.sharding.seq_blocks``), decode attention merges the ranks'
@@ -38,9 +39,17 @@ one rank's; the sampling kernel runs on the local rows. Under a
 vocab-split "model" axis the LM head gathers the logits whole
 (``models.transformer``), so the sampling kernel runs there too.
 
-These still raise, each naming its ROADMAP item: the "fsdp" and
-"fsdp_tp" layouts that cut params over the data axes (training layouts),
-SSM layers under a "model" axis, encoder-decoder models under a mesh of
+  * "fsdp" and "fsdp_tp" (ZeRO-3): the params are cut over the data
+    axes too ("fsdp": each leaf's largest dim over every axis; "fsdp_tp":
+    the "tp" split plus a second dim over the data axes), and each layer's
+    leaves are gathered at the head of the layer and dropped after it
+    (``dist.collectives.gathered``, under ``dist.context.param_layout``),
+    so a rank holds 1 / (D x M) of the weights and at most one gathered
+    layer. A rank then computes as under "tp" ("fsdp": on whole leaves,
+    every kv head, so its caches keep the kv heads whole over "model").
+
+These still raise, each naming its ROADMAP item: SSM layers under a
+"model" axis that splits them, encoder-decoder models under a mesh of
 more than one rank, and rows cut over more than one data axis. The reference's guards hold too: int8 KV
 raises under a mesh and paged caches raise (the batcher keeps the dense
 cache).
@@ -67,7 +76,7 @@ compiled executable, but the counts read the same as the reference's
 from __future__ import annotations
 
 import dataclasses
-from contextlib import nullcontext
+from contextlib import contextmanager
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -131,38 +140,22 @@ def _check_prompt(s: int, max_len: int):
 
 def _check_mesh(model: Model, mesh, seq_shard: bool, strategy: str,
                 specs) -> None:
-    """The layouts the port serves: a "model" axis under "tp" or with
-    ``seq_shard``, and data axes; the rest raise, naming their ROADMAP
+    """The layouts the port serves: a "model" axis under "tp",
+    "fsdp_tp" or with ``seq_shard``, data axes, and params cut over the
+    data axes ("fsdp", "fsdp_tp"); the rest raise, naming their ROADMAP
     item."""
     cfg = model.cfg
     if strategy not in ("tp", "fsdp", "fsdp_tp"):
         raise ValueError(f"unknown strategy {strategy!r}")
     data = set(dctx.dp_axes(mesh))
-    if strategy == "fsdp" or any(
-            a in data for spec in tree_leaves(specs, _is_spec)
-            for e in spec if e is not None
-            for a in (e if isinstance(e, tuple) else (e,))):
-        raise NotImplementedError(
-            f"strategy {strategy!r} cuts params over every axis or over "
-            f"the data axes, a training layout the port does not serve "
-            f"(ROADMAP.md Queue 1 #4.2, the training layouts "
-            f"'fsdp'/'fsdp_tp')")
-    if int(mesh.devices.size) > 1 and cfg.encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder layers under a mesh of more than "
-            f"one rank are not ported yet (ROADMAP.md Queue 1 #4.5, SSM "
-            f"and encoder-decoder layers under 'model')")
+    shd.check_layout(cfg, mesh, strategy, seq_shard)
     if sum(dctx.axis_size(a, mesh) > 1 for a in data) > 1:
         raise NotImplementedError(
             f"{dict(mesh.shape)}: rows cut over more than one data axis "
             f"are not served yet (ROADMAP.md Queue 1 #4.4, "
             f"make_production_mesh)")
-    m = dctx.axis_size("model", mesh)
-    if m > 1 and not seq_shard and cfg.has_mixer("ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: SSM layers under a 'model' axis are not ported "
-            f"yet (ROADMAP.md Queue 1 #4.5, SSM and encoder-decoder "
-            f"layers under 'model')")
+    # "fsdp" gathers every leaf whole: "model" splits nothing there
+    m = dctx.axis_size("model", mesh) if strategy != "fsdp" else 1
     if m > 1 and not seq_shard and cfg.has_mixer("attn"):
         # q heads cut over "model", kv heads whole: each block of q heads
         # must attend whole kv heads in one uniform group
@@ -195,9 +188,10 @@ class Engine:
         entry point runs under ``dist.mesh_context(mesh)``.
       seq_shard: cut the KV cache's SEQUENCE dim over the "model" axis
         (the layout ``dist.collectives.seq_sharded_*`` consumes).
-      strategy: the planner's param layout ("tp"; "fsdp" and "fsdp_tp"
-        raise where they cut params over the data axes); default
-        ``dist.sharding.pick_strategy(kind="infer")``.
+      strategy: the planner's param layout ("tp", "fsdp" or "fsdp_tp");
+        default ``dist.sharding.pick_strategy(kind="infer")``, which
+        takes "fsdp_tp" where the weights over the "model" axis pass half
+        the card.
     """
 
     model: Model
@@ -234,12 +228,18 @@ class Engine:
                 # sequence-sharded cache
                 plan = tree_map(lambda p: shd.drop_axis(p, "model"), plan,
                                 is_leaf=_is_spec)
+            zero = shd.zero_axes(self.strategy, self.mesh)
             self.params_sharding = tree_map(
-                lambda p: shd.rank_sharding(p, self.mesh), plan,
+                lambda p: shd.rank_sharding(p, self.mesh, zero), plan,
                 is_leaf=_is_spec)
             if self.seq_shard and self.run.attn_impl != "seq_shard":
                 self.run = dataclasses.replace(self.run,
                                                attn_impl="seq_shard")
+        # some leaf cut over the data axes ("fsdp", "fsdp_tp"): the layers
+        # gather their leaves as they run
+        self._gathers = self.params_sharding is not None and any(
+            sh.zero for sh in tree_leaves(
+                self.params_sharding, lambda x: isinstance(x, shd.Sharding)))
         self.device = torch.device(self.device)
         self._exec: Dict[Any, Any] = {}
         self.compile_count = 0
@@ -253,10 +253,17 @@ class Engine:
     # Mesh plumbing
     # ------------------------------------------------------------------
 
+    @contextmanager
     def _ctx(self):
-        """The ambient-mesh context every entry point runs under."""
-        return (dctx.mesh_context(self.mesh) if self.mesh is not None
-                else nullcontext())
+        """The ambient-mesh context every entry point runs under, with
+        the params' layout declared where leaves are cut over the data
+        axes."""
+        if self.mesh is None:
+            yield
+            return
+        with dctx.mesh_context(self.mesh), dctx.param_layout(
+                self.params_sharding if self._gathers else None):
+            yield
 
     def shard_params(self, params):
         """This rank's shard of the whole ``params`` on the engine's
@@ -406,16 +413,20 @@ class Engine:
             # the row's owner: the data shard whose block holds it
             n, rows = cache.row_shards, cache.lengths.shape[0]
             owner, row = divmod(row, rows) if n > 1 else (0, row)
-            if n == 1 or owner == dctx.dp_index(self.mesh):
+            own = n == 1 or owner == dctx.dp_index(self.mesh)
+            # params cut over the data axes: every data shard runs the
+            # layers, its gathers spanning them all, and only the owner
+            # keeps the rows
+            if own or self._gathers:
                 with dctx.row_shard(1, 0):
                     logits, small = self.model.prefill(
                         self.run, params, batch, max_len=max_len,
                         seq_shards=shards, shard=shard)
-                # KV rows (the prompt's positions), SSM state rows (whole)
-                for big, sm in zip(cache.layers, small.layers):
-                    for name, t in sm.items():
-                        big[name][row, :t.shape[1]].copy_(t[0])
-                cache.lengths[row] = small.lengths[0]
+                if own:  # KV rows (the prompt's), SSM state rows (whole)
+                    for big, sm in zip(cache.layers, small.layers):
+                        for name, t in sm.items():
+                            big[name][row, :t.shape[1]].copy_(t[0])
+                    cache.lengths[row] = small.lengths[0]
                 out = (logits if sample_kw is None else self._sample(
                     logits, generator, 1, 1, 0, sample_kw))
             else:  # another shard's row: keep the generator in step
@@ -510,9 +521,16 @@ class Engine:
     def _alloc_cache(self, specs: Cache) -> Cache:
         """Zeros of this rank's slice of every leaf of the whole cache
         ``specs`` (meta tensors), as ``dist.sharding.cache_shardings``
-        lays it out."""
+        lays it out; under "fsdp" the kv heads stay whole over "model", as
+        the gathered leaves compute every head there."""
         plan = shd.cache_shardings(specs, self.model.cfg, self.mesh,
                                    seq_shard=self.seq_shard)
+        if self.strategy == "fsdp" and not self.seq_shard:
+            plan = dataclasses.replace(
+                plan, layers=tuple(
+                    {name: shd.drop_axis(spec, "model")
+                     for name, spec in layer.items()}
+                    for layer in plan.layers))
 
         def zeros(t, spec):
             shape = shd.rank_sharding(spec, self.mesh).local_shape(t.shape)

@@ -15,6 +15,14 @@ the same on-disk layout:
 
 Where the reference writes ``str(treedef)`` the manifest holds the port's
 own structure string (``tree.tree_structure``) under the same key.
+
+Under a mesh (``shardings=``, a tree of ``dist.sharding.Sharding``
+mirroring the state, under the ambient ``dist.context.Mesh``) a leaf is
+this rank's block: ``save`` gathers each leaf whole over the ranks that
+cut it (``dist.collectives.whole``, every rank taking part) and rank 0
+writes it, as the reference's ``np.asarray`` gathers a sharded array, so
+the file is the one a single rank writes; ``restore`` reads the whole
+leaf and keeps this rank's block.
 """
 from __future__ import annotations
 
@@ -27,6 +35,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.dist import collectives
+from repro_torch.dist import context as dctx
+from repro_torch.dist.sharding import Sharding
 from repro_torch.tree import (tree_leaves_with_path, tree_map_with_path,
                               tree_structure)
 
@@ -61,11 +72,28 @@ def _flatten(tree) -> list:
     return sorted(tree_leaves_with_path(tree), key=lambda pl: pl[0])
 
 
+def _cuts(shardings) -> dict:
+    return dict(tree_leaves_with_path(
+        shardings, lambda x: isinstance(x, Sharding))) if shardings else {}
+
+
 def save(ckpt_dir: str, step: int, state: dict, *, keep: int = 3,
-         extra: Optional[dict] = None) -> str:
-    """state: any tree of tensors (params/opt_state/...). Returns path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+         extra: Optional[dict] = None, shardings=None) -> str:
+    """state: any tree of tensors (params/opt_state/...). Returns path.
+    With ``shardings`` every rank of the ambient mesh calls this: the
+    leaves are gathered whole and rank 0 writes them."""
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    if shardings is not None:
+        cuts = _cuts(shardings)
+        state = tree_map_with_path(
+            lambda p, t: collectives.whole(t, cuts[p]) if p in cuts else t,
+            state)
+        mesh = dctx.get_mesh()
+        if mesh.rank == 0:
+            save(ckpt_dir, step, state, keep=keep, extra=extra)
+        torch.distributed.barrier()  # no rank reads before it is written
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -115,9 +143,13 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return int(ckpts[-1].split("_")[1])
 
 
-def restore(ckpt_dir: str, like: Any, step: Optional[int] = None):
+def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
+            shardings=None):
     """Restore into the structure of ``like``: each leaf takes the dtype and
-    device of ``like``'s leaf at its position. Returns (state, manifest)."""
+    device of ``like``'s leaf at its position. With ``shardings`` the
+    leaves of ``like`` are this rank's blocks, and each whole leaf read
+    is cut to its block. Returns (state, manifest)."""
+    cuts = _cuts(shardings)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
@@ -130,7 +162,10 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None):
             f"checkpoint has {manifest['n_leaves']} leaves, expected "
             f"{len(like_leaves)} — structure mismatch")
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        new = {p: _from_numpy(data[f"leaf_{i}"], manifest["dtypes"][i])
-               .to(device=leaf.device, dtype=leaf.dtype)
-               for i, (p, leaf) in enumerate(like_leaves)}
+        new = {}
+        for i, (p, leaf) in enumerate(like_leaves):
+            t = _from_numpy(data[f"leaf_{i}"], manifest["dtypes"][i])
+            if p in cuts:
+                t = cuts[p].slice(t).clone()
+            new[p] = t.to(device=leaf.device, dtype=leaf.dtype)
     return tree_map_with_path(lambda p, _: new[p], like), manifest

@@ -83,16 +83,15 @@ def test_mesh_context_and_constrain():
 
 
 def test_unported_layouts_name_their_roadmap_item(qwen):
-    """Layouts the port still refuses, each naming its ROADMAP item: the
-    training layout "fsdp_tp" (params cut over the data axis), an SSM
-    model under "model", an encoder-decoder model on several ranks, a
+    """Layouts the port still refuses, each naming its ROADMAP item: an
+    SSM model under "model", an encoder-decoder model on several ranks, a
     GQA layout whose q-head blocks map onto no uniform kv group (6 q
     heads over 2 kv heads on 3 ranks: 2 a rank, groups of 3), and rows
-    cut over two data axes."""
+    cut over two data axes. (The ZeRO layouts "fsdp" and "fsdp_tp" are
+    served: ``test_torch_zero.py``.)"""
     gqa = dataclasses.replace(qwen["cfg"], n_heads=6, n_kv_heads=2,
                               name="gqa-6-2")
-    cases = [(qwen["cfg"], (2, 1), "fsdp_tp", r"Queue 1 #4\.2, the training"),
-             (configs.smoke("mamba2-130m"), (1, 2), None,
+    cases = [(configs.smoke("mamba2-130m"), (1, 2), None,
               r"Queue 1 #4\.5, SSM and encoder-decoder"),
              (configs.smoke("whisper-base"), (2, 1), None,
               r"Queue 1 #4\.5, SSM and encoder-decoder"),
