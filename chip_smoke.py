@@ -89,7 +89,20 @@ points and checks what comes out:
        through ``ContinuousBatcher`` on (1, 2), (1, 4), (2, 1), (2, 2) and
        (2, 2) seq-sharded, sampled on (2, 1) and (1, 2); (r3)
        ``qwen2-moe-a2.7b`` at 6 of its 24 layers, its scatter dispatch
-       grouped per data shard on (2, 1) and its experts split on (1, 2).
+       grouped per data shard on (2, 1) and its experts split on (1, 2);
+  (s)  the ZeRO-3 layouts ("fsdp", "fsdp_tp") on (r)'s spawns: training
+       held to one rank between a sound twin and a planted fault, and
+       qwen2-7b served under "fsdp_tp";
+  (t)  SSM and encoder-decoder models under a mesh and replicas on mesh
+       slices, on (r)'s spawns, each held to one rank: (t1)
+       ``whisper-base`` at full width on (2, 2) "tp" (frames encoded at
+       admission, greedy and fused sampled) and trained under "fsdp_tp"
+       (2, 2) with (s)'s bounds; (t2) ``mamba2-130m`` on (1, 2) "tp" and
+       (2, 2) "fsdp_tp"; (t3) the smoke jamba on (1, 2); (t4) qwen2-7b,
+       all 28 layers, a ``Router`` over ``ReplicaPool(mesh_slices=2)`` on
+       (2, 2) (two (1, 2) "tp" slices computing concurrently), on the
+       modeled and the measured clock, then ``launch.serve --router
+       --mesh 2x2 --mesh-slices 2`` as a user types it.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Any failed phase raises, so the script exits non-zero and
@@ -116,6 +129,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -170,7 +184,8 @@ from repro_torch.models.transformer import Cache, PagedCache  # noqa: E402
 from repro_torch.obs import lint_prometheus  # noqa: E402
 from repro_torch.router import (  # noqa: E402
     TRAFFIC, CalibratedLatencyModel, EventRouter,
-    QueueDepthPolicy, ReplicaConfig, ReplicaPool, make_requests)
+    QueueDepthPolicy, Replica, ReplicaConfig, ReplicaPool, Router,
+    make_requests)
 from repro_torch.serving import (  # noqa: E402
     ContinuousBatcher, Engine, PageAllocator, Request)
 from repro_torch.tools import trace_report  # noqa: E402
@@ -273,6 +288,16 @@ CASES = [
      torch.bfloat16),
     ("tp_distilbert_bidir_6_6_b16", 16, 128, 128, 6, 6, 64, False, None,
      None, torch.bfloat16),
+    # phase (t)'s local heads: whisper-base on (2, 2) (4 of its 8 heads a
+    # rank), an admission's encoder over its 1 500 frames (bidirectional)
+    # and a round's cross-attention of one data shard's 2 decoder rows over
+    # them; jamba's smoke attention layer on 2 (2 q over 1 kv head, D 16)
+    ("t_whisper_encoder_bidir_4_4", 1, 1500, 1500, 4, 4, 64, False, None,
+     None, torch.bfloat16),
+    ("t_whisper_cross_s1_4_4", 2, 1, 1500, 4, 4, 64, False, None, None,
+     torch.bfloat16),
+    ("t_jamba_smoke_2_1", 1, 16, 16, 2, 1, 16, True, None, None,
+     torch.bfloat16),
 ]
 # the flash cases that are timed: the offline main path, one qwen2-7b
 # prefill admission and phase (q)'s three shapes
@@ -328,6 +353,14 @@ DECODE_CASES = [
      torch.bfloat16),
     ("dp_rows4_moe", 4, 16, 16, 128, 512, _R_LENGTHS[:4], None, None,
      torch.bfloat16),
+    # phase (t): whisper-base's decoder self-attention at 4 heads a rank
+    # on one data shard's 2 rows (D 64, a 64-position cache: prompts of
+    # 4-16 tokens, 16 new), and a qwen2-7b replica on a (1, 2) slice: 4
+    # slots at 14/2 heads
+    ("t_whisper_dec_4_4", 2, 4, 4, 64, 64, (4, 31), None, None,
+     torch.bfloat16),
+    ("t_slice_14_2", 4, 14, 2, 128, 512, _R_LENGTHS[:4], None, None,
+     torch.bfloat16),
 ]
 # decode cases timed beside the serving path's shape (the first case)
 TIMED_DECODE = ("gemma2_window_softcap", "nemotron_d192")
@@ -363,6 +396,11 @@ SAMPLE_CASES = [
     ("gemma2_round_b4_v256000", 4, 256000, PATH_SAMPLING, None, "randn"),
     # phase (r)'s sampled rounds on one data shard's 4 rows
     ("dp_rows4", 4, VOCAB, PATH_SAMPLING, None, "randn"),
+    # phase (t)'s sampled whisper-base rounds: the logits a "model"-split
+    # LM head gathers whole (V 51 865), one data shard's 2 rows and an
+    # admission's 1
+    ("t_whisper_b2_v51865", 2, 51865, PATH_SAMPLING, None, "randn"),
+    ("t_whisper_b1_v51865", 1, 51865, PATH_SAMPLING, None, "randn"),
     ("device_memory", 2, 1_000_000, PATH_SAMPLING, None, "randn"),
     ("top_k_1", 8, VOCAB, dict(temperature=0.8, top_k=1), None, "randn"),
     ("top_k_v", 2, VOCAB, dict(temperature=0.8, top_k=VOCAB), None,
@@ -4708,6 +4746,11 @@ R_GEN = dict(n_requests=8, prompt_len=(64, 257), new_tokens=(16, 17),
 R_QWEN = [((1, 2), False), ((1, 4), False), ((2, 1), False),
           ((2, 2), False), ((2, 2), True)]
 R_SAMPLED = [(2, 1), (1, 2)]
+# (1, 4), the slowest layout (446.5 ms a round on an H100: PERF.md §5),
+# at R_M4_LAYERS of the 28 layers, held to one rank at that depth: with
+# it at 28 the whole script ran 1 135 s of its 1 200 s on a slow host
+# once phase (t) rode the same spawns, past the 85% mark (PERF.md §6)
+R_M4, R_M4_LAYERS = (1, 4), 8
 # sampled streams that may part from the one-rank run's, each at a near-tie:
 # three quarters of them in all (a stream makes 16 Gumbel-max draws, and
 # the gap between a draw's two best scores is near 0 often enough that
@@ -4818,6 +4861,8 @@ def tp_lm_job(dev, job, rank) -> dict:
     shape, seq = tuple(job["shape"]), job.get("seq", False)
     if job["arch"] == "qwen2-7b":
         cfg = R_CONFIG("qwen2-7b")
+        if job.get("layers"):
+            cfg = dataclasses.replace(cfg, n_layers=job["layers"])
     else:
         cfg = moe_config(job.get("no_drops", False))
     model = build_model(cfg)
@@ -4999,7 +5044,8 @@ def tp_worker(spec_path: str):
     rank, world = rank_env()
     out = {}
     run = {"clf": tp_clf_job, "lm": tp_lm_job, "zero_train": zero_train_job,
-           "zero_serve": zero_serve_job}
+           "zero_serve": zero_serve_job, "t_family": t_family_job,
+           "t_slices": t_slices_job, "t_cli": t_cli_job}
     for job in spec["jobs"]:
         t0 = time.perf_counter()
         out[job["name"]] = run[job["kind"]](dev, job, rank)
@@ -5415,6 +5461,17 @@ def _s_train_setup(what: str):
         loader = TrainLoader(x, y, batch=TRAIN["batch"], seed=SEED)
         return cfg, True, [loader.next_batch()
                            for _ in range(S_CLF_STEPS)], adamw()
+    if what == "whisper":  # t1's training: frames, then 64-token targets
+        cfg = R_CONFIG("whisper-base")
+        rng = np.random.default_rng(SEED)
+        (b, n), batches = T_WHISPER_BATCH, []
+        for _ in range(T_WHISPER_STEPS):
+            t = rng.integers(0, cfg.vocab_size, (b, n + 1)).astype(np.int32)
+            batches.append({"enc_embeds": rng.standard_normal(
+                (b, T_WHISPER["frames"], cfg.enc_d_model), dtype=np.float32),
+                "tokens": t[:, :-1], "labels": t[:, 1:]})
+        return (cfg, True, batches,
+                optimizer.AdamW(schedule=optimizer.constant(1e-4)))
     if what == "qwen":
         cfg = dataclasses.replace(R_CONFIG("qwen2-7b"),
                                   n_layers=S_QWEN_LAYERS)
@@ -5436,7 +5493,8 @@ def s_init(model, dev, tame: bool, shardings=None):
     params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev,
                         shardings=shardings)
     if tame:
-        tame_attention(model.cfg, params)
+        (tame_whisper if model.cfg.encdec else tame_attention)(model.cfg,
+                                                               params)
     return params
 
 
@@ -5906,7 +5964,7 @@ def zero_jobs(dev, tmp: Path) -> tuple:
     """Phase (s)'s jobs for the 2- and 4-rank spawns and its one-rank
     references (computed here, before the spawns)."""
     refs = {}
-    for what in ("clf", "qwen", "mamba"):
+    for what in ("clf", "qwen", "mamba", "whisper"):
         t = time.perf_counter()
         refs[what] = s_reference_train(dev, what, tmp / f"s_{what}.pt")
         refs[what]["twin"] = s_sound_twin(dev, what, tmp / f"s_{what}.pt",
@@ -5930,7 +5988,10 @@ def zero_jobs(dev, tmp: Path) -> tuple:
                     ref=str(tmp / "s_qwen.pt")),
                dict(kind="zero_serve", name="s4 qwen2-7b fsdp_tp(2, 2)",
                     forced=forced_tokens(refs["serve"]["greedy"], S_GEN,
-                                         S_FORCED))]}
+                                         S_FORCED)),
+               dict(kind="zero_train", what="whisper", shape=(2, 2),
+                    strategy="fsdp_tp", name="t1 whisper-base fsdp_tp(2, 2)",
+                    ref=str(tmp / "s_whisper.pt"))]}
     for js in jobs.values():  # each training layout's first with the fault
         firsts = {}
         for job in js:
@@ -5948,7 +6009,7 @@ def check_zero(dev, ranks: dict, refs: dict) -> dict:
     """Phase (s)'s checks, every job's before any failure is raised;
     returns the launch counts by path."""
     paths, failed, readings = {}, [], {}
-    for what in ("clf", "qwen", "mamba"):
+    for what in ("clf", "qwen", "mamba", "whisper"):
         twin = refs[what]["twin"]
         readings[f"{what} sound twin"] = twin
         print(f"(s) {what} sound twin (one rank, rows reversed) vs one "
@@ -6000,7 +6061,8 @@ def check_zero_job(dev, name, rs, refs, paths):
                    for m in ("greedy", "sampled"))
             for k in rs[0]["greedy"]["counts"]}
     else:
-        key = {"s1": "clf", "s2": "qwen", "s3": "mamba"}[what]
+        key = {"s1": "clf", "s2": "qwen", "s3": "mamba",
+               "t1": "whisper"}[what]
         out = check_zero_train(name, rs, refs[key])
         if "held_logits" in rs[0]:
             out.update(check_zero_clf(name, rs, refs[key],
@@ -6011,6 +6073,541 @@ def check_zero_job(dev, name, rs, refs, paths):
     out["job_s"] = rs[0]["job_s"]
     print(f"(s) {name}: {json.dumps(out, default=str)}", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase (t): SSM and encoder-decoder models under a mesh, and replicas on
+# disjoint mesh slices, on (r)'s rank spawns
+# ---------------------------------------------------------------------------
+
+# t1: whisper-base at full width on (2, 2) "tp" (4 of its 8 heads a rank):
+# 4 requests of 4-16 prompt tokens, each over its own 1 500 frames, 16 new
+# tokens, 4 slots of 64; greedy, then fused sampled. Its training, 2 AdamW
+# steps of 4 x 1 500 frames with 64-token targets under "fsdp_tp" (2, 2),
+# rides phase (s)'s training jobs ("whisper": its reference, sound twin,
+# planted fault and bounds).
+T_WHISPER = dict(n_requests=4, prompt_len=(4, 17), new_tokens=(16, 17),
+                 n_slots=4, max_len=64, frames=1500)
+T_WHISPER_STEPS, T_WHISPER_BATCH = 2, (4, 64)
+# t2: mamba2-130m, all 24 layers: 8 requests of 128 or 256 tokens (whole
+# SSD chunks), 16 new, over 8 slots, on (1, 2) "tp" and (2, 2) "fsdp_tp"
+T_MAMBA = dict(n_requests=8, prompt_lens=(128, 256), new_tokens=(16, 17),
+               n_slots=8, max_len=512)
+# t3: jamba at smoke width (the full model is about 400 B params), 8
+# requests of one or two SSD chunks of its smoke config, on (1, 2) "tp"
+T_JAMBA = dict(n_requests=8, prompt_lens=(8, 16), new_tokens=(16, 17),
+               n_slots=4, max_len=64)
+# (name, family, mesh, strategy, sampled) of t1-t3's served layouts
+T_FAMILIES = [("t1 whisper-base tp(2, 2)", "whisper", (2, 2), "tp", True),
+              ("t2 mamba2-130m tp(1, 2)", "mamba", (1, 2), "tp", False),
+              ("t2 mamba2-130m fsdp_tp(2, 2)", "mamba", (2, 2), "fsdp_tp",
+               False),
+              ("t3 jamba smoke tp(1, 2)", "jamba", (1, 2), "tp", False)]
+# t4: the paper's deployment, a replica per mesh slice: qwen2-7b, all 28
+# layers, tamed q/k, (2, 2) cut into 2 slices of (1, 2) "tp"; 12 requests
+# of 64-256 tokens, 16 new, 4 slots of 512 a replica, QueueDepthPolicy,
+# all arriving at once, greedy; on the modeled clock, then the measured
+T_SLICES = dict(n_requests=12, prompt_len=(64, 257), new_tokens=(16, 17),
+                n_slots=4, max_len=512)
+T_LAT = dict(cold_start_s=0.5, per_item_s=0.02)
+# t4's command line, at the smoke config ``main`` serves
+T_CLI_ARGV = ["--router", "--mesh", "2x2", "--mesh-slices", "2",
+              "--horizon", "2", "--seed", str(SEED)]
+# a greedy stream on a mesh may part from one rank's at near-ties only, and
+# at most T_GREEDY_PARTS eighths of the streams; a sampled one (t1) at most
+# R_SAMPLED_PARTS of R_GEN's 8. The random full-width mamba2-130m's logits
+# are flat (its best logits lie within the near-tie bound of each other
+# often: 5 of 8 streams parted at near-ties on (2, 2) on an H100,
+# PERF.md §6, each judged), so its streams may part at near-ties in up to
+# T_FLAT_PARTS eighths. The smoke jamba's init is
+# chaotic (its own half-ulp param shift moves its logits by 58-123% RMS:
+# tests/test_torch_families.py), so its streams part wherever the mesh's
+# summation order flips a token: t3 holds its admission logits and counts
+# its partings, as that test does for the smoke jamba
+T_GREEDY_PARTS, T_FLAT_PARTS = 3, 6
+T_CHAOTIC = ("jamba",)
+
+
+def t_config(family: str):
+    """The config of a t1-t3 family (``R_CONFIG``: full width; jamba at
+    smoke width)."""
+    if family == "jamba":
+        return configs.smoke("jamba-1.5-large-398b")
+    return R_CONFIG({"whisper": "whisper-base",
+                     "mamba": "mamba2-130m"}[family])
+
+
+def t_gen(family: str) -> dict:
+    return {"whisper": T_WHISPER, "mamba": T_MAMBA, "jamba": T_JAMBA}[family]
+
+
+def t_requests(cfg, gen) -> list:
+    """``gen``'s requests, drawn from SEED: prompts of ``prompt_len``
+    (a range) or ``prompt_lens`` (a choice), an encoder-decoder model's
+    frame embeddings with each."""
+    rng = np.random.default_rng(SEED)
+    reqs = []
+    for rid in range(gen["n_requests"]):
+        n = (int(rng.choice(gen["prompt_lens"])) if "prompt_lens" in gen
+             else int(rng.integers(*gen["prompt_len"])))
+        prompt = rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+        frames = (rng.standard_normal((gen["frames"], cfg.enc_d_model),
+                                      dtype=np.float32)
+                  if cfg.encdec else None)
+        reqs.append(Request(rid, prompt, max_new_tokens=int(
+            rng.integers(*gen["new_tokens"])), enc_embeds=frames))
+    return reqs
+
+
+def t_init(model, dev, shardings=None):
+    """Params drawn from SEED (this rank's slices with ``shardings``),
+    q/k tamed as phases (q) and (r) tame them."""
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev,
+                        shardings=shardings)
+    if model.cfg.encdec:
+        tame_whisper(model.cfg, params)
+    else:
+        tame_attention(model.cfg, params)
+    return params
+
+
+def t_serve(engine, params, cfg, gen, **kw) -> dict:
+    """``gen``'s requests through ``ContinuousBatcher``, the launch counts
+    around them."""
+    reqs = t_requests(cfg, gen)
+    torch.cuda.synchronize()
+    reset_counts()
+    res = serve_cluster.serve(engine, params, reqs, n_slots=gen["n_slots"],
+                              max_len=gen["max_len"], seed=SEED, **kw)
+    torch.cuda.synchronize()
+    b = res["batcher"]
+    if b.take_rejected() or len(res["completed"]) != len(reqs):
+        raise AssertionError("(t) requests rejected or left undone")
+    return {"streams": [r.generated for r in reqs], "counts": read_counts(),
+            "rounds": b.rounds, "wall_s": res["wall_s"],
+            "tokens": res["tokens"]}
+
+
+def t_admissions(engine, params, cfg, gen) -> torch.Tensor:
+    """Each request's last-prompt-token logits, prefilled alone."""
+    out = []
+    with torch.no_grad():
+        for r in t_requests(cfg, gen):
+            kw = ({} if r.enc_embeds is None
+                  else {"enc_embeds": r.enc_embeds[None]})
+            out.append(engine.prefill(params, r.prompt[None],
+                                      max_len=gen["max_len"], **kw)[0])
+    return torch.cat(out).float().cpu()
+
+
+def t_family_run(dev, family, mesh=None, strategy=None,
+                 sampled=False) -> dict:
+    """A t1-t3 family served on ``mesh`` (this rank's part) or on one
+    rank: admission logits, greedy (and fused-sampled) streams with their
+    launch counts and collectives, param bytes against the planner's."""
+    cfg, gen = t_config(family), t_gen(family)
+    model = build_model(cfg)
+    engine = Engine(model, serve_cluster.RUN, device=dev, mesh=mesh,
+                    strategy=strategy)
+    params = t_init(model, dev, engine.params_sharding)
+    torch.cuda.synchronize()
+    out = {"admission_logits": t_admissions(engine, params, cfg, gen),
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(params))}
+    if mesh is not None:
+        out["planned_bytes"] = planned_bytes(model, engine)
+        out["strategy"] = engine.strategy
+    collectives.reset_stats()
+    out["greedy"] = t_serve(engine, params, cfg, gen)
+    out["collectives"] = {k: v[0] for k, v in collectives.STATS.items()}
+    if sampled:
+        out["sampled"] = t_serve(engine, params, cfg, gen,
+                                 fused_sampling=True,
+                                 **serve_cluster.SAMPLING)
+    if mesh is None:  # kept to judge where a mesh's stream parts
+        out["judge"] = (engine, params)
+    else:
+        del engine, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def t_family_job(dev, job, rank) -> dict:
+    mesh = make_host_mesh(tuple(job["shape"]))
+    return t_family_run(dev, job["family"], mesh, job["strategy"],
+                        job.get("sampled", False))
+
+
+def t_parted(engine, params, reqs, want, got, tie) -> int:
+    """Greedy streams equal, or parted where both tokens lie within
+    ``tie`` of the best logit of one rank's forward pass over the prompt
+    (and frames) and the common tokens at the first difference; raises at
+    a parting that is not a near-tie. Returns how many parted."""
+    parted = 0
+    for r, a, b in zip(reqs, want, got):
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            continue
+        seq = np.concatenate([r.prompt, a[:i]]).astype(np.int32)
+        batch = {"tokens": torch.tensor(seq[None], device=engine.device)}
+        if r.enc_embeds is not None:
+            batch["enc_embeds"] = torch.tensor(
+                r.enc_embeds[None], device=engine.device)
+        with torch.no_grad():
+            logits = engine.model.forward(engine.run, params,
+                                          batch)[0][0, -1].float()
+        best = float(logits.max())
+        gaps = (best - float(logits[a[i]]), best - float(logits[b[i]]))
+        if max(gaps) > tie:
+            raise AssertionError(f"(t) stream parts at token {i} ({a[i]} "
+                                 f"vs {b[i]}) with logit gaps {gaps} > "
+                                 f"{tie}")
+        parted += 1
+    return parted
+
+
+def t_check_family(name, family, ranks, ref) -> dict:
+    """One t1-t3 layout held to one rank: streams equal on every rank;
+    admission logits within PATH_RTOL; greedy streams parted only at
+    near-ties (at most T_GREEDY_PARTS), sampled at most R_SAMPLED_PARTS;
+    every rank's param bytes the planner's; the attention kernels (none
+    for mamba2) and, sampled, the sampling kernel launched on every
+    rank."""
+    cfg, gen = t_config(family), t_gen(family)
+    res = ranks[0]
+    for mode in ("greedy", "sampled"):
+        if mode in res and any(x[mode]["streams"] != res[mode]["streams"]
+                               for x in ranks[1:]):
+            raise AssertionError(f"(t) {name}: ranks' {mode} streams "
+                                 f"differ")
+    err = rel_rms(res["admission_logits"], ref["admission_logits"])
+    diff = float((res["admission_logits"]
+                  - ref["admission_logits"]).abs().max())
+    tie = NOISE_FACTOR * diff + LOGIT_FLOOR
+    if not torch.isfinite(res["admission_logits"]).all() or err > PATH_RTOL:
+        raise AssertionError(f"(t) {name}: admission logits vs one rank, "
+                             f"relative RMS {err}")
+    engine, params = ref["judge"]
+    reqs = t_requests(cfg, gen)
+    if family in T_CHAOTIC:
+        greedy = sum(a != b for a, b in zip(ref["greedy"]["streams"],
+                                            res["greedy"]["streams"]))
+    else:
+        greedy = t_parted(engine, params, reqs, ref["greedy"]["streams"],
+                          res["greedy"]["streams"], tie)
+        parts = T_FLAT_PARTS if family == "mamba" else T_GREEDY_PARTS
+        if greedy > parts * len(reqs) // 8:
+            raise AssertionError(f"(t) {name}: {greedy} greedy streams "
+                                 f"parted")
+    out = {"strategy": res["strategy"], "admission_rel_rms": err,
+           "max_abs_diff": diff, "near_tie_bound": tie,
+           "greedy_parted": greedy, "rounds": res["greedy"]["rounds"],
+           "greedy_tokens_per_s": res["greedy"]["tokens"]
+           / res["greedy"]["wall_s"],
+           "one_rank_tokens_per_s": ref["greedy"]["tokens"]
+           / ref["greedy"]["wall_s"],
+           "param_bytes_per_rank": res["param_bytes"],
+           "one_rank_param_bytes": ref["param_bytes"],
+           "collectives_rank0": res["collectives"],
+           "launches_rank0": res["greedy"]["counts"]}
+    if "sampled" in res:
+        parted = sum(a != b for a, b in zip(ref["sampled"]["streams"],
+                                            res["sampled"]["streams"]))
+        if parted > R_SAMPLED_PARTS * len(reqs) // R_GEN["n_requests"]:
+            raise AssertionError(f"(t) {name}: {parted} sampled streams "
+                                 f"parted from one rank's")
+        out["sampled_parted"] = parted
+    attn = cfg.has_mixer("attn")
+    for r, x in enumerate(ranks):
+        if x["param_bytes"] != x["planned_bytes"]:
+            raise AssertionError(f"(t) {name} rank {r}: {x['param_bytes']} "
+                                 f"param bytes, planned {x['planned_bytes']}")
+        c = x["greedy"]["counts"]
+        if (c["flash_attention"] > 0) != attn or \
+                (c["decode_attention"] > 0) != attn:
+            raise AssertionError(f"(t) {name} rank {r}: launches {c}")
+        if "sampled" in x and x["sampled"]["counts"]["fused_sample"] == 0:
+            raise AssertionError(f"(t) {name} rank {r}: no sampling kernel")
+    print(f"(t) {name}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def t_slice_requests(cfg) -> list:
+    reqs = serve_cluster.make_requests(
+        cfg.vocab_size, T_SLICES["n_requests"], T_SLICES["prompt_len"],
+        T_SLICES["new_tokens"], SEED)
+    for r in reqs:
+        r.arrival_t = 0.0
+    return reqs
+
+
+def t_slices_reference(dev) -> dict:
+    """t4's requests through one rank's batcher (4 slots of 512) on the
+    same tamed params: the greedy streams the slices are held to."""
+    cfg = R_CONFIG("qwen2-7b")
+    model = build_model(cfg)
+    engine = Engine(model, serve_cluster.RUN, device=dev)
+    params = r_init(model, dev)
+    reqs = t_slice_requests(cfg)
+    serve_cluster.serve(engine, params, reqs, n_slots=T_SLICES["n_slots"],
+                        max_len=T_SLICES["max_len"], seed=SEED)
+    out = {"streams": [r.generated for r in reqs]}
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def t_slices_job(dev, job, rank) -> dict:
+    """t4 on this rank: a ``Router`` over ``ReplicaPool(mesh_slices=2)``
+    on the (2, 2) mesh, each slice's engine drawing its (1, 2) "tp"
+    shards; on the modeled clock, then the measured one. Per run: the
+    report, the streams, each replica's slice, whether this rank computed
+    it and its rounds, the launch counts and the router's wall time; the
+    slice's param bytes against the planner's and ``memory_allocated``."""
+    cfg = R_CONFIG("qwen2-7b")
+    model = build_model(cfg)
+    mesh = make_host_mesh((2, 2))
+    engine = Engine(model, serve_cluster.RUN, device=dev, mesh=mesh,
+                    strategy="tp")
+    out = {}
+    step = Replica.step
+    for clock in ("modeled", "measured"):
+        lat = dict(T_LAT, per_item_s=None) if clock == "measured" else T_LAT
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated(dev)
+        pool = ReplicaPool(engine, lambda e: r_init(model, dev,
+                                                    e.params_sharding),
+                           ReplicaConfig(n_slots=T_SLICES["n_slots"],
+                                         max_len=T_SLICES["max_len"]),
+                           lat=LatencyModel(**lat), mesh_slices=2)
+        # this rank's slice built before the run: its params alone
+        mine = next(i for i in range(2) if pool.slices.member(i))
+        eng, params = pool.slices.engine_for(mine)
+        torch.cuda.synchronize()
+        mem = torch.cuda.memory_allocated(dev) - mem0
+        reqs = t_slice_requests(cfg)
+        router = Router(pool, QueueDepthPolicy(max_replicas=8), reqs,
+                        traffic_name="t4")
+        busy = {}  # replica -> host seconds of the rounds this rank ran
+
+        def timed(r):
+            t = time.perf_counter()
+            s = step(r)
+            if r.computes:
+                torch.cuda.synchronize()
+                busy[r.replica_id] = busy.get(r.replica_id, 0.0) + (
+                    time.perf_counter() - t)
+            return s
+        Replica.step = timed
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            rep = router.run()
+        finally:
+            Replica.step = step
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[clock] = {
+            "summary": rep.summary(), "wall_s": wall,
+            "streams": [r.generated for r in reqs],
+            "counts": read_counts(), "held": pool.slices.held(),
+            "replicas": [(r.slice_idx, r.computes, r.rounds, r.spawn_t,
+                          r.retire_t) for r in pool.replicas],
+            "busy_s": sum(busy.values()),
+            "slice_devices": [pool.slices.devices_of(i) for i in range(2)],
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in tree_leaves(params)),
+            "planned_bytes": planned_bytes(model, eng),
+            "slice_shape": dict(eng.mesh.shape),
+            "memory_allocated": mem,
+            "compile_count": pool.slices.compile_count()}
+        del pool, router, eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def t_cli_job(dev, job, rank) -> dict:
+    """t4's command line as a user types it, run as one of its ranks:
+    ``launch.serve.main`` with ``--router --mesh 2x2 --mesh-slices 2`` at
+    the smoke config it serves, every policy; the launch counts."""
+    torch.cuda.synchronize()
+    reset_counts()
+    out = serve.main(list(job["argv"]))
+    torch.cuda.synchronize()
+    return {"summaries": out, "counts": read_counts()}
+
+
+def t_check_slices(dev, ranks, ref, tie) -> dict:
+    """t4 held: the report and streams equal on every rank, on each
+    clock; every request done, 2 slices, at most 2 replicas live; each
+    rank computed only its slice's replicas and both slices served; the
+    slices' lifetimes disjoint; no slice held at the end; the modeled
+    run's greedy streams parted from one rank's batcher only at
+    near-ties (``tie``: phase (r)'s bound on (1, 2), the slice's own
+    layout); the param bytes a rank the planner's and within S_MEM_RTOL of
+    ``memory_allocated``; the flash and decode kernels launched on every
+    rank."""
+    cfg = R_CONFIG("qwen2-7b")
+    out = {}
+    for clock in ("modeled", "measured"):
+        res = [x[clock] for x in ranks]
+        first = res[0]
+        for x in res[1:]:
+            if x["summary"] != first["summary"] or \
+                    x["streams"] != first["streams"]:
+                raise AssertionError(f"(t) t4 {clock}: ranks' reports or "
+                                     f"streams differ")
+        s = first["summary"]
+        if s["n_completed"] != T_SLICES["n_requests"] or \
+                s["n_slices"] != 2 or s["peak_replicas"] > 2:
+            raise AssertionError(f"(t) t4 {clock}: {s}")
+        spans = {}
+        for rank, x in enumerate(res):
+            slice_of = next(i for i, d in enumerate(x["slice_devices"])
+                            if rank in d)
+            for idx, computes, _, start, end in x["replicas"]:
+                if computes != (idx == slice_of):
+                    raise AssertionError(f"(t) t4 rank {rank} computed "
+                                         f"slice {idx}: {computes}")
+            if x["held"]:
+                raise AssertionError(f"(t) t4: slices {x['held']} held")
+            if x["param_bytes"] != x["planned_bytes"] or abs(
+                    x["memory_allocated"] - x["param_bytes"]) > \
+                    S_MEM_RTOL * x["param_bytes"]:
+                raise AssertionError(
+                    f"(t) t4 rank {rank}: {x['param_bytes']} param bytes, "
+                    f"planned {x['planned_bytes']}, allocated "
+                    f"{x['memory_allocated']}")
+            if not (x["counts"]["flash_attention"]
+                    and x["counts"]["decode_attention"]):
+                raise AssertionError(f"(t) t4 rank {rank}: launches "
+                                     f"{x['counts']}")
+        for idx, _, _, start, end in first["replicas"]:
+            spans.setdefault(idx, []).append(
+                (start, float("inf") if end is None else end))
+        if set(spans) != {0, 1}:
+            raise AssertionError(f"(t) t4 {clock}: slices used {spans}")
+        for sp in spans.values():
+            sp.sort()
+            if any(e0 > s1 + 1e-9 for (_, e0), (s1, _) in zip(sp, sp[1:])):
+                raise AssertionError(f"(t) t4: a slice held twice {sp}")
+        # a slice's rounds and the host seconds its first rank spent in
+        # them; concurrency: the two slices' busy seconds over the wall
+        by_slice = {i: x for i, x in ((0, res[0]), (1, res[2]))}
+        rounds = {i: sum(r for idx, c, r, _, _ in x["replicas"]
+                         if c and idx == i) for i, x in by_slice.items()}
+        busy = {i: x["busy_s"] for i, x in by_slice.items()}
+        out[clock] = {"summary": s, "wall_s_per_rank": [x["wall_s"]
+                                                        for x in res],
+                      "rounds_by_slice": rounds, "busy_s_by_slice": busy,
+                      "ms_per_round_by_slice": {
+                          i: 1e3 * busy[i] / max(rounds[i], 1)
+                          for i in busy},
+                      "concurrency": sum(busy.values()) / first["wall_s"],
+                      "launches_rank0": first["counts"]}
+    modeled = ranks[0]["modeled"]
+    prompts = [r.prompt for r in t_slice_requests(cfg)]
+    out["greedy_parted"] = judge_greedy(dev, cfg, prompts, ref["streams"],
+                                        modeled["streams"], tie)
+    if out["greedy_parted"] > T_GREEDY_PARTS * T_SLICES["n_requests"] // 8:
+        raise AssertionError(f"(t) t4: {out['greedy_parted']} streams "
+                             f"parted")
+    out["measured_parted"] = sum(
+        a != b for a, b in zip(ranks[0]["measured"]["streams"],
+                               modeled["streams"]))
+    out.update(param_bytes_per_rank=modeled["param_bytes"],
+               memory_allocated_per_rank=[x["modeled"]["memory_allocated"]
+                                          for x in ranks],
+               slice_shape=modeled["slice_shape"],
+               compile_count_rank0=modeled["compile_count"])
+    print(f"(t) t4 qwen2-7b on 2 slices of (1, 2): {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def t_check_cli(ranks) -> dict:
+    """t4's command line: every policy's summary equal on every rank, each
+    request done, 2 slices; the kernels launched on every rank."""
+    first = ranks[0]["summaries"]
+    for x in ranks[1:]:
+        if x["summaries"] != first:
+            raise AssertionError("(t) t4 command line: ranks' summaries "
+                                 "differ")
+    for name, s in first.items():
+        if s["n_completed"] != s["n_submitted"] or s["n_slices"] != 2 \
+                or s["peak_replicas"] > 2:
+            raise AssertionError(f"(t) t4 command line {name}: {s}")
+    for r, x in enumerate(ranks):
+        if not (x["counts"]["flash_attention"]
+                and x["counts"]["decode_attention"]):
+            raise AssertionError(f"(t) t4 command line rank {r}: "
+                                 f"{x['counts']}")
+    out = {name: {k: s[k] for k in ("n_completed", "peak_replicas",
+                                     "ttft_p50_s", "tpot_p50_s")}
+           for name, s in first.items()}
+    print(f"(t) t4 launch.serve --router --mesh 2x2 --mesh-slices 2: "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def t_jobs(dev) -> tuple:
+    """Phase (t)'s jobs for the 2- and 4-rank spawns and its one-rank
+    references (computed here, before the spawns)."""
+    t0 = time.perf_counter()
+    refs = {family: t_family_run(dev, family, sampled=family == "whisper")
+            for family in ("whisper", "mamba", "jamba")}
+    refs["slices"] = t_slices_reference(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    jobs = {2: [], 4: []}
+    for name, family, shape, strategy, sampled in T_FAMILIES:
+        jobs[shape[0] * shape[1]].append(dict(
+            kind="t_family", name=name, family=family, shape=shape,
+            strategy=strategy, sampled=sampled))
+    jobs[4] += [dict(kind="t_slices", name="t4 slices"),
+                dict(kind="t_cli", name="t4 command line",
+                     argv=T_CLI_ARGV)]
+    print(f"(t) one-rank references {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return jobs, refs
+
+
+def check_t(dev, ranks: dict, refs: dict, tie: float) -> dict:
+    """Phase (t)'s checks, every job's before any failure is raised;
+    returns the launch counts by path, summed over the ranks."""
+    paths, failed = {}, []
+    for name, family, _, _, _ in T_FAMILIES:
+        try:
+            t_check_family(name, family, ranks[name], refs[family])
+        except AssertionError as e:
+            failed.append(str(e))
+        paths["t_" + re.sub(r"\W+", "_", name.split(" ", 1)[1]).strip(
+            "_")] = {
+            k: sum(x[m]["counts"][k] for x in ranks[name]
+                   for m in ("greedy", "sampled") if m in x)
+            for k in NO_LAUNCHES}
+    try:
+        t_check_slices(dev, ranks["t4 slices"], refs["slices"], tie)
+    except AssertionError as e:
+        failed.append(str(e))
+    paths["t_slices_qwen2_7b"] = {
+        k: sum(x[c]["counts"][k] for x in ranks["t4 slices"]
+               for c in ("modeled", "measured")) for k in NO_LAUNCHES}
+    try:
+        t_check_cli(ranks["t4 command line"])
+    except AssertionError as e:
+        failed.append(str(e))
+    paths["t_serve_main_mesh_slices"] = {
+        k: sum(x["counts"][k] for x in ranks["t4 command line"])
+        for k in NO_LAUNCHES}
+    for family in ("whisper", "mamba", "jamba"):
+        refs[family].pop("judge", None)
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return paths
 
 
 def run_tp(dev) -> dict:
@@ -6029,8 +6626,13 @@ def _run_tp(dev, tmp: Path) -> dict:
     t_s = time.perf_counter()
     zero, zero_refs = zero_jobs(dev, tmp)
     s_ref_s = time.perf_counter() - t_s
+    t_t = time.perf_counter()
+    tjobs, t_refs = t_jobs(dev)
+    t_ref_s = time.perf_counter() - t_t
     t0 = time.perf_counter()
+    qcfg4 = dataclasses.replace(qcfg, n_layers=R_M4_LAYERS)
     refs = {"qwen": one_rank_lm(dev, qcfg, sampled=True),
+            "qwen(1, 4)": one_rank_lm(dev, qcfg4),
             "moe(2, 1)": one_rank_lm(dev, moe_config(False),
                                      prefill=R_MOE_PREFILL, halves=True),
             "moe(1, 2)": one_rank_lm(dev, moe_config(True),
@@ -6051,8 +6653,12 @@ def _run_tp(dev, tmp: Path) -> dict:
             4: [dict(kind="clf", name="distilbert(2, 2)", argv=R_CLF_ARGV)]
             + [dict(kind="lm", arch="qwen2-7b", shape=s, seq=q, forced=qf,
                     name=f"qwen{s}{' seq_shard' if q else ''}")
+               if s != R_M4 else
+               dict(kind="lm", arch="qwen2-7b", shape=s, name=f"qwen{s}",
+                    layers=R_M4_LAYERS,
+                    forced=forced_tokens(refs["qwen(1, 4)"]["greedy"]))
                for s, q in R_QWEN if s[0] * s[1] == 4]}
-    for world, js in zero.items():
+    for world, js in list(zero.items()) + list(tjobs.items()):
         jobs[world] += js
     ranks, walls = {}, {}
     print(f"(r) one-rank references {ref_s:.1f} s; the card holds "
@@ -6067,8 +6673,10 @@ def _run_tp(dev, tmp: Path) -> dict:
               flush=True)
         for job in js:
             ranks[job["name"]] = [g[job["name"]] for g in got]
-    zero_ranks = {k: ranks.pop(k) for k in list(ranks)
-                  if k.startswith("s")}
+    zero_names = {j["name"] for js in zero.values() for j in js}
+    t_names = {j["name"] for js in tjobs.values() for j in js}
+    zero_ranks = {k: ranks.pop(k) for k in list(ranks) if k in zero_names}
+    t_ranks = {k: ranks.pop(k) for k in list(ranks) if k in t_names}
     t_s = time.perf_counter()
     paths = check_zero(dev, zero_ranks, zero_refs)
     s_jobs = sum(rs[0]["job_s"] for rs in zero_ranks.values())
@@ -6082,9 +6690,10 @@ def _run_tp(dev, tmp: Path) -> dict:
                                       R_CONFIG("distilbert-imdb"))
             counts = [x["launches"] for x in rs]
         else:
-            cfg = qcfg if name.startswith("qwen") else moe_config(
-                name == "moe(1, 2)")
-            ref = refs["qwen"] if name.startswith("qwen") else refs[name]
+            cfg = (qcfg4 if name == f"qwen{R_M4}" else qcfg
+                   if name.startswith("qwen")
+                   else moe_config(name == "moe(1, 2)"))
+            ref = refs.get(name, refs["qwen"])
             summary[name] = check_lm_layout(dev, name, cfg, rs, ref)
             counts = [x[mode]["counts"] for x in rs
                       for mode in ("greedy", "sampled") if mode in x]
@@ -6096,6 +6705,18 @@ def _run_tp(dev, tmp: Path) -> dict:
             raise AssertionError(f"(r) layout {key} did not run")
     print(f"(r) every layout held; references {ref_s:.1f} s, ranks "
           f"{json.dumps(walls)} s")
+    t_c = time.perf_counter()
+    paths.update(check_t(dev, t_ranks, t_refs,
+                         summary["qwen(1, 2)"]["near_tie_bound"]))
+    t_jobs_s = sum(rs[0]["job_s"] for rs in t_ranks.values())
+    t_train_s = sum(rs[0]["job_s"] for n, rs in zero_ranks.items()
+                    if n.startswith("t1"))
+    print(f"phase (t) SSM/encoder-decoder under a mesh and mesh slices, on "
+          f"(r)'s spawns: references {t_ref_s:.1f} s, serving jobs "
+          f"{t_jobs_s:.1f} s, whisper training jobs {t_train_s:.1f} s, "
+          f"checks {time.perf_counter() - t_c:.1f} s; in all "
+          f"{t_ref_s + t_jobs_s + t_train_s + time.perf_counter() - t_c:.1f}"
+          f" s", flush=True)
     return paths
 
 
@@ -6174,8 +6795,9 @@ def main():
     torch.cuda.empty_cache()
     paths.update(run_families(phase))
     torch.cuda.empty_cache()
-    paths.update(phase("(r) tensor-parallel and data-axis serving, ranks "
-                       "sharing the card", run_tp))
+    paths.update(phase("(r)-(t) tensor-parallel and data-axis serving, "
+                       "ZeRO-3, SSM/encoder-decoder models under a mesh "
+                       "and mesh slices, ranks sharing the card", run_tp))
     # the path each kernel must have been launched on
     main_path = {"flash_attention": "generate_qwen2_7b",
                  "decode_attention": "generate_qwen2_7b",

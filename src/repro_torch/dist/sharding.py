@@ -146,14 +146,24 @@ def pick_strategy(param_specs, mesh, kind: str = "train",
 # ---------------------------------------------------------------------------
 
 
+# the slices of one live mesh, by (rank grid, axes, n): their process
+# groups are made once, by every rank in one order
+_SLICES: dict = {}
+
+
 def slice_meshes(mesh, n: int):
     """Partition ``mesh`` into ``n`` disjoint sub-meshes of its ranks.
 
     The cut runs along the first axis whose size ``n`` divides, data axes
     first and "model" last, as the reference's. Each slice keeps all of
-    the parent's axis names (the cut axis shrinks to ``size // n``) and
-    this rank's process groups along the axes that were not cut. ``n ==
-    1`` returns ``[mesh]``; raises ``ValueError`` when no axis divides.
+    the parent's axis names (the cut axis shrinks to ``size // n``).
+    Where the parent has process groups (a live multi-rank mesh), every
+    slice gets its own: each rank makes every slice's groups, its own
+    and the others', in slice order (``launch.mesh.line_groups``: a
+    ``new_group`` every rank of the world must call), once per (mesh,
+    n), and keeps those of the slice it is in; a rank outside a slice
+    holds a slice mesh with no coordinates and no groups. ``n == 1``
+    returns ``[mesh]``; raises ``ValueError`` when no axis divides.
     """
     if n <= 0:
         raise ValueError(f"need at least one slice, got n={n}")
@@ -166,14 +176,20 @@ def slice_meshes(mesh, n: int):
     for axis in order:
         if int(mesh.shape[axis]) % n == 0:
             subs = np.split(mesh.devices, n, axis=names.index(axis))
-            keep = {k: g for k, g in mesh.groups.items()
-                    if axis not in (k if isinstance(k, tuple) else (k,))}
-            return [ctx.Mesh(s, names, rank=mesh.rank,
-                             groups=keep if mesh.rank in s else {})
-                    for s in subs]
-    raise ValueError(
-        f"cannot cut mesh {dict(mesh.shape)} into {n} disjoint slices: "
-        f"no axis size is divisible by {n}")
+            break
+    else:
+        raise ValueError(
+            f"cannot cut mesh {dict(mesh.shape)} into {n} disjoint "
+            f"slices: no axis size is divisible by {n}")
+    if not mesh.groups:
+        return [ctx.Mesh(s, names, rank=mesh.rank) for s in subs]
+    key = (mesh.devices.tobytes(), mesh.devices.shape, tuple(names), n)
+    if key not in _SLICES:
+        from repro_torch.launch.mesh import line_groups
+        _SLICES[key] = [ctx.Mesh(s, names, rank=mesh.rank,
+                                 groups=line_groups(s, names))
+                        for s in subs]
+    return _SLICES[key]
 
 
 # ---------------------------------------------------------------------------
@@ -366,22 +382,48 @@ def whole_over_data(shardings, batch_axes, mesh) -> dict:
     return out
 
 
-def check_layout(cfg, mesh, strategy: str, seq_shard: bool = False):
-    """Raise, naming ROADMAP Queue 1 #4.5, where a layout would split what
-    the port does not split yet: encoder-decoder layers on more than one
-    rank, SSM layers under a "model" axis that splits them ("fsdp"
-    gathers every leaf whole; ``seq_shard`` keeps the params whole)."""
-    if int(mesh.devices.size) > 1 and cfg.encdec:
+def check_layout(cfg, mesh, strategy: str, seq_shard: bool = False,
+                 plan=None, rows: bool = True):
+    """Raise where the port does not lay out ``cfg`` on ``mesh``:
+
+      * ``rows`` cut over more than one data axis (ROADMAP Queue 1 #4.4,
+        make_production_mesh), for a caller that cuts the batch's rows
+        over the data axes (the engine; a train step takes them all);
+      * a GQA layout whose q-head blocks map onto no uniform group of
+        whole kv heads (``models.attention.kv_group``): the q heads cut
+        over "model" by ``plan`` (the planner's spec tree, default
+        :func:`param_specs_tree`) while the kv heads stay whole.
+
+    SSM and encoder-decoder layers are laid out under every strategy:
+    the SSM mixer runs whole on each "model" rank (its per-head leaves
+    gathered, ``models.ssm``), the encoder-decoder splits as the
+    decoder-only layers do (``models.encdec``)."""
+    from repro_torch.models import attention as attn_lib
+    data = ctx.dp_axes(mesh)
+    if rows and sum(ctx.axis_size(a, mesh) > 1 for a in data) > 1:
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder layers under a mesh of more than "
-            f"one rank are not ported yet (ROADMAP.md Queue 1 #4.5, SSM "
-            f"and encoder-decoder layers under 'model')")
-    if (strategy != "fsdp" and not seq_shard and cfg.has_mixer("ssm")
-            and ctx.axis_size("model", mesh) > 1):
-        raise NotImplementedError(
-            f"{cfg.name}: SSM layers under a 'model' axis are not ported "
-            f"yet (ROADMAP.md Queue 1 #4.5, SSM and encoder-decoder "
-            f"layers under 'model')")
+            f"{dict(mesh.shape)}: rows cut over more than one data axis "
+            f"are not served yet (ROADMAP.md Queue 1 #4.4, "
+            f"make_production_mesh)")
+    # "fsdp" gathers every leaf whole: "model" splits nothing there
+    m = ctx.axis_size("model", mesh) if strategy != "fsdp" else 1
+    if m <= 1 or seq_shard or not cfg.has_mixer("attn"):
+        return
+    if plan is None:
+        plan = param_specs_tree(_model_specs(cfg), strategy, mesh)
+    blocks = plan["blocks"] if "blocks" in plan else plan["dec_blocks"]
+    attn = next(b.get("attn", b.get("self_attn")) for b in blocks
+                if "attn" in b or "self_attn" in b)
+    if attn["wq"][1] == "model" and attn["wk"][1] is None:
+        # q heads cut over "model", kv heads whole: each block of q heads
+        # must attend whole kv heads in one uniform group
+        for index in range(m):
+            attn_lib.kv_group(cfg, cfg.n_heads // m, index)
+
+
+def _model_specs(cfg):
+    from repro_torch.models import model_zoo
+    return model_zoo.build(cfg).param_specs
 
 
 def drop_axis(spec, axis: str) -> PartitionSpec:
@@ -460,7 +502,8 @@ def cache_shardings(cache, cfg, mesh, *, seq_shard: bool = False):
                                    lengths=batch_only(cache.lengths))
     return {f.name: tree_map(lambda x: one(x) if len(_shape(x)) >= 4
                              else batch_only(x), getattr(cache, f.name))
-            for f in dataclasses.fields(cache)}
+            for f in dataclasses.fields(cache)
+            if not isinstance(getattr(cache, f.name), int)}
 
 
 # ---------------------------------------------------------------------------

@@ -115,12 +115,8 @@ def init_from_env(device) -> torch.device:
 
 def make_host_mesh(shape=(2, 4), axes=("data", "model")) -> Mesh:
     """A mesh of ``shape`` over the ranks of the default process group
-    (one rank without one), rank r at row-major position r. Builds one
-    process group per line of every axis longer than 1, of the data
-    axes taken together when more than one of them is, and of every axis
-    at once (the world) when that is another set again (every rank makes
-    every group, in the same order, as ``new_group`` requires), and keeps
-    this rank's."""
+    (one rank without one), rank r at row-major position r, with this
+    rank's process groups (:func:`line_groups`)."""
     shape = tuple(int(n) for n in shape)
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
@@ -128,14 +124,31 @@ def make_host_mesh(shape=(2, 4), axes=("data", "model")) -> Mesh:
         raise ValueError(f"mesh {dict(zip(axes, shape))} needs "
                          f"{int(np.prod(shape))} ranks; {world} running")
     grid = np.arange(world).reshape(shape)
+    return Mesh(grid, axes, rank=rank, groups=line_groups(grid, axes))
+
+
+def line_groups(grid, axes) -> Dict[object, object]:
+    """The process groups of a mesh over the rank grid ``grid`` (global
+    ranks, one grid axis per name of ``axes``): one group per line of
+    every axis longer than 1, of the data axes taken together when more
+    than one of them is, and of every axis at once when that is another
+    set again (a leaf cut over every axis, "fsdp"; the grad norm; a
+    slice's agreement). Every rank of the world makes every group, in
+    the same order, as ``new_group`` requires, also for a grid it is not
+    in (a slice of another replica); returns this rank's, keyed by axis
+    or tuple of axes (none for a rank outside the grid). A line that
+    spans the whole world is the default group."""
+    grid = np.asarray(grid)
+    shape = grid.shape
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
     groups: Dict[object, object] = {}
     every = tuple(axis for axis, n in zip(axes, shape) if n > 1)
     lined = [(axis,) for axis in every]
     data = tuple(a for a in every if a != "model")
     if len(data) > 1:  # the data axes taken together carry the batch
         lined.append(data)
-    if len(every) > 1 and every != data:  # the world: a leaf cut over
-        # every axis ("fsdp"), the grad norm
+    if len(every) > 1 and every != data:  # every axis at once
         lined.append(every)
     for line_axes in lined:
         dims = [axes.index(a) for a in line_axes]
@@ -149,7 +162,7 @@ def make_host_mesh(shape=(2, 4), axes=("data", "model")) -> Mesh:
             if rank in ranks:
                 groups[line_axes if len(line_axes) > 1
                        else line_axes[0]] = group
-    return Mesh(grid, axes, rank=rank, groups=groups)
+    return groups
 
 
 def n_chips(mesh: Mesh) -> int:

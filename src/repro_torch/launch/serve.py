@@ -42,11 +42,16 @@ d_ff, experts and vocabulary cut over "model"), the batch's rows cut over
 spawns D * M ranks of itself (``launch.mesh.spawn_ranks``, gloo where
 they share a card or run on the CPU, NCCL where each has a GPU), every
 rank runs the same job on the same inputs, and rank 0's report is the
-one printed. A multi-rank mesh serves the offline mode and ``--router``
-on its modeled clock; modes driven by each rank's own host clock
-(``--measured-time``, ``--calibrate``, ``--http``) would take different
-decisions on different ranks, and raise. Not in the port yet:
-``--mesh-slices`` (ROADMAP Queue 1 #4.3, replicas on mesh slices).
+one printed. A multi-rank mesh serves the offline mode, ``--router``
+(modeled, calibrated or ``--measured-time`` clock) and ``--calibrate``:
+each measured time is the slowest rank's (``Engine.agree``) or the
+source rank's (``router.events``), so every rank takes the same
+decisions. ``--mesh DxM --mesh-slices n`` cuts the mesh into ``n``
+disjoint slices (``dist.sharding.slice_meshes``), one replica a slice
+(``router.pool.SlicePool``), the launcher checking the cut before it
+spawns; without ``--mesh`` the ``n`` slices are one-rank engines. Not in
+the port yet: ``--http`` on a multi-rank mesh (ROADMAP Queue 1 #4.7,
+the front door on rank 0 feeding every rank's router).
 
 Usage:
   python -m repro_torch.launch.serve --n-items 256 --batch-size 32 \
@@ -61,6 +66,8 @@ Usage:
       #     http://127.0.0.1:8765/v1/generate
   python -m repro_torch.launch.serve --router --device cpu
   python -m repro_torch.launch.serve --mesh 2x2 --device cpu  # 4 ranks
+  python -m repro_torch.launch.serve --router --mesh 2x2 --mesh-slices 2 \
+      --device cpu    # 4 ranks, two replicas on (1, 2) slices
 """
 from __future__ import annotations
 
@@ -89,6 +96,7 @@ from repro_torch.data import imdb_reviews
 from repro_torch.data.pipeline import DatasetRef
 from repro_torch.models import RunConfig, build
 from repro_torch.dist.context import Mesh
+from repro_torch.dist.sharding import slice_meshes
 from repro_torch.launch.mesh import (init_from_env, make_host_mesh, rank_env,
                                      spawn_ranks)
 from repro_torch.models.common import ModelConfig
@@ -208,21 +216,27 @@ def run_offline(cfg: ModelConfig, *, n_items: int = 256, seq_len: int = 64,
 
 def lm_engine(cfg: ModelConfig, *, seed: int = 0, device="cuda",
               kv_dtype: str = "bf16", mesh=None, seq_shard: bool = False,
-              params=None, cache_pad: int = 16):
+              params=None, cache_pad: int = 16, slices: bool = False):
     """(engine, placed params) for the generative modes: the hand kernels
     (``attn_impl="pallas"``; the engine makes it "seq_shard" under a mesh
     with ``seq_shard``), ``cache_pad`` 16 as the reference's online modes
     (its batch DAG takes 8). ``params`` defaults to a random init from
-    ``seed`` on the engine's device."""
+    ``seed`` on the engine's device. With ``slices`` the engine is the
+    template of a mesh-sliced pool and the params come back as a
+    function of a slice's engine (``SlicePool``): each slice draws (or
+    cuts) its own, so no rank holds the template's."""
     model = build(cfg)
     engine = Engine(model, RunConfig(attn_impl="pallas", cache_pad=cache_pad,
                                      kv_dtype=kv_dtype),
                     device=device, mesh=mesh, seq_shard=seq_shard)
-    if params is None:  # this rank's slices, drawn leaf by leaf
-        return engine, model.init(
-            torch.Generator(device=engine.device).manual_seed(seed),
-            engine.device, shardings=engine.params_sharding)
-    return engine, engine.shard_params(params)
+
+    def place(eng):
+        if params is None:  # this rank's slices, drawn leaf by leaf
+            return model.init(
+                torch.Generator(device=eng.device).manual_seed(seed),
+                eng.device, shardings=eng.params_sharding)
+        return eng.shard_params(params)
+    return engine, (place if slices else place(engine))
 
 
 def calibrate(engine: Engine, params, *, prompt_len: int = 16,
@@ -254,7 +268,7 @@ def calibrate(engine: Engine, params, *, prompt_len: int = 16,
         samples, backend=dev.type,
         device_count=torch.cuda.device_count() if dev.type == "cuda" else 1,
         source=source)
-    if path:
+    if path and rank_env()[0] == 0:  # every rank fitted the same model
         cal.save(path)
     print(f"== calibrated round model -> {path}: {cal.summary()} ==")
     return cal
@@ -286,23 +300,27 @@ def run_router(cfg: ModelConfig, *, engine: Optional[Engine] = None,
                crash_prob: float = 0.0, straggler_prob: float = 0.0,
                budget_usd: float = 1.0, fused_sampling: bool = False,
                paged: bool = False, sampling: Optional[dict] = None,
-               policies=None, store: bool = True) -> Dict[str, dict]:
+               policies=None, store: bool = True,
+               mesh_slices: Optional[int] = None) -> Dict[str, dict]:
     """Online mode: one ``Router`` run per policy on the same traffic.
 
     ``engine``/``params`` default to :func:`lm_engine` over ``cfg``;
     ``policies`` to ``default_policies``. With ``store`` the params are
     published to an ``ArtifactStore`` and every cold start pays their
     fetch, as the reference does (the fetch time follows the pickled
-    size, which differs between the packages). Returns, per policy name,
-    its ``summary``, ``report`` and ``router`` (whose ``completed`` holds
-    the served requests).
+    size, which differs between the packages; params given as a function
+    of a slice's engine are not published). ``mesh_slices`` puts each
+    replica on its own slice of the engine's mesh (``SlicePool``).
+    Returns, per policy name, its ``summary``, ``report`` and ``router``
+    (whose ``completed`` holds the served requests).
     """
     if engine is None:
         engine, params = lm_engine(cfg, seed=seed, device=device,
                                    kv_dtype=kv_dtype, mesh=mesh,
-                                   seq_shard=seq_shard)
+                                   seq_shard=seq_shard,
+                                   slices=bool(mesh_slices))
     artifacts = None
-    if store:
+    if store and not callable(params):
         artifacts = ArtifactStore()
         artifacts.put_tree("models/lm", params)
     if calibration is not None and measured_time:
@@ -337,7 +355,9 @@ def run_router(cfg: ModelConfig, *, engine: Optional[Engine] = None,
     print(f"== router: {len(arrivals)} requests over {horizon:.0f}s "
           f"({traffic} at {rate:.0f} rps), "
           f"prompt {prompt_len} + {max_new_tokens} new tokens, "
-          f"{n_slots} slots/replica ==")
+          f"{n_slots} slots/replica"
+          + (f", {mesh_slices} mesh slices" if mesh_slices else "")
+          + " ==")
     out = {}
     for policy in policies:
         reqs = make_requests(arrivals, prompt_len=prompt_len,
@@ -348,7 +368,8 @@ def run_router(cfg: ModelConfig, *, engine: Optional[Engine] = None,
             engine, params, rcfg, lat=lat,
             injector=FaultInjector(seed=seed, crash_prob=crash_prob,
                                    straggler_prob=straggler_prob),
-            store=artifacts, params_ref="models/lm")
+            store=artifacts, params_ref="models/lm",
+            mesh_slices=mesh_slices)
         router = Router(pool, policy, reqs,
                         queue_cfg=QueueConfig(max_depth=queue_cap,
                                               default_deadline_s=deadline),
@@ -575,15 +596,21 @@ def parse_mesh(spec: Optional[str]) -> Optional[tuple]:
 
 
 def check_layout(cfg: ModelConfig, shape: tuple, *, seq_shard: bool,
-                 kv_dtype: str = "bf16"):
+                 kv_dtype: str = "bf16", mesh_slices: Optional[int] = None):
     """Raise ``SystemExit`` before any rank starts when the engine would
-    refuse ``cfg`` on a ``shape`` mesh (the layout rank 0 would plan)."""
+    refuse ``cfg`` on a ``shape`` mesh (the layout rank 0 would plan), or
+    on each of its ``mesh_slices`` slices."""
     grid = np.arange(int(np.prod(shape))).reshape(shape)
     try:
+        mesh = Mesh(grid, ("data", "model"))
+        if mesh_slices:
+            mesh = slice_meshes(mesh, mesh_slices)[0]
         Engine(build(cfg), RunConfig(kv_dtype=kv_dtype), device="cpu",
-               mesh=Mesh(grid, ("data", "model")), seq_shard=seq_shard)
+               mesh=mesh, seq_shard=seq_shard)
     except (NotImplementedError, ValueError) as e:
-        raise SystemExit(f"--mesh {'x'.join(map(str, shape))}: {e}")
+        raise SystemExit(f"--mesh {'x'.join(map(str, shape))}"
+                         + (f" --mesh-slices {mesh_slices}" if mesh_slices
+                            else "") + f": {e}")
 
 
 def spawn_mesh(argv: Sequence[str], ranks: int, timeout: float) -> dict:
@@ -686,8 +713,9 @@ def main(argv=None, *, rank_timeout: float = 3600.0):
                          "router run (written here by --calibrate; "
                          "default path calibration.json)")
     ap.add_argument("--mesh-slices", type=int, default=None,
-                    help="replica-per-mesh-slice mode (not in the port "
-                         "yet: ROADMAP Queue 1 #4.3)")
+                    help="replica-per-mesh-slice mode: cut the --mesh "
+                         "into this many disjoint slices, one replica "
+                         "each (without --mesh: one-rank engines)")
     ap.add_argument("--budget-usd", type=float, default=1.0,
                     help="cost-cap policy budget")
     # -- batch-DAG mode (repro_torch.batch) ------------------------------
@@ -731,10 +759,6 @@ def main(argv=None, *, rank_timeout: float = 3600.0):
                          "with python -m repro_torch.tools.trace_report")
     args = ap.parse_args(argv)
 
-    if args.mesh_slices:
-        raise SystemExit("--mesh-slices needs Engine.for_mesh and the "
-                         "pool's SlicePool, not ported yet (ROADMAP Queue "
-                         "1 #4.3)")
     if args.batch_dag:
         return run_batch_dag(
             configs.smoke(args.router_arch), seed=args.seed,
@@ -751,15 +775,15 @@ def main(argv=None, *, rank_timeout: float = 3600.0):
     mesh = None
     if shape is not None:
         ranks = int(np.prod(shape))
-        if ranks > 1 and (args.http or args.calibrate or args.measured_time):
+        if ranks > 1 and args.http:
             raise SystemExit(
-                "--http, --calibrate and --measured-time read each rank's "
-                "own host clock, so ranks would part ways; a multi-rank "
-                "--mesh serves the offline mode and --router on its "
-                "modeled clock (ROADMAP.md Queue 1 #4.3)")
+                "--http on a multi-rank --mesh needs the front door on "
+                "rank 0 feeding every rank's router, not ported yet "
+                "(ROADMAP.md Queue 1 #4.7)")
         if ranks > 1 and rank_env()[1] == 1:  # the launcher: start ranks
             check_layout(cfg, shape, seq_shard=args.seq_shard,
-                         kv_dtype=args.kv_dtype)
+                         kv_dtype=args.kv_dtype,
+                         mesh_slices=args.mesh_slices)
             argv = list(argv if argv is not None else sys.argv[1:])
             return spawn_mesh(argv, ranks, rank_timeout)
         device = init_from_env(args.device)
@@ -768,7 +792,9 @@ def main(argv=None, *, rank_timeout: float = 3600.0):
     if online:
         engine, params = lm_engine(cfg, seed=args.seed, device=args.device,
                                    kv_dtype=args.kv_dtype, mesh=mesh,
-                                   seq_shard=args.seq_shard)
+                                   seq_shard=args.seq_shard,
+                                   slices=bool(args.mesh_slices
+                                               and args.router))
         common = dict(prompt_len=args.prompt_len,
                       max_new_tokens=args.max_new_tokens,
                       n_slots=args.n_slots, max_replicas=args.max_replicas,
@@ -789,7 +815,7 @@ def main(argv=None, *, rank_timeout: float = 3600.0):
                             max_new_tokens=args.max_new_tokens,
                             path=cal_path)
             if not args.router:
-                return {"calibration": cal.to_json()}
+                return _result(args, {"calibration": cal.to_json()})
         elif args.calibration:
             cal = CalibratedLatencyModel.load(cal_path)
             print(f"== loaded calibration {cal_path}: {cal.summary()} ==")
@@ -799,7 +825,7 @@ def main(argv=None, *, rank_timeout: float = 3600.0):
                           per_token_s=args.per_token_s,
                           measured_time=args.measured_time,
                           calibration=cal, budget_usd=args.budget_usd,
-                          **common)
+                          mesh_slices=args.mesh_slices, **common)
         return _result(args, {name: run["summary"]
                               for name, run in runs.items()})
     out = run_offline(cfg, n_items=args.n_items, seq_len=args.seq_len,

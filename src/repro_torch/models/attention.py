@@ -516,17 +516,31 @@ def cross_attn_forward(cfg: ModelConfig, p, x, enc_k, enc_v, *,
     """Decoder cross-attention of x (B,S,D) against precomputed encoder
     K/V (B,T,KV,hd), bidirectional. Under "pallas" it runs the flash
     kernel, at S = 1 in a decode step; "seq_shard" takes the plain path,
-    as the reference's does."""
-    q = _project(x, p["wq"])
+    as the reference's does. Under "model" the rank's q heads attend its
+    kv heads of ``enc_k``/``enc_v`` (:func:`cross_kv` cut them by the
+    same plan; :func:`kv_slice` where only the q heads are cut), x enters
+    the split through ``collectives.model_copy`` and :func:`out_proj`
+    sums the heads' partial outputs over "model" before ``bo``."""
+    q_split = p["wq"].shape[1] < cfg.n_heads
+    q = _project(collectives.model_copy(x) if q_split else x, p["wq"])
     if "bq" in p:
         q = q + p["bq"].to(q.dtype)
-    o = attend_full(q, enc_k, enc_v, mask_kind="bidir", cap=cfg.attn_softcap,
+    sel = kv_slice(cfg, p)
+    kernel = impl == "pallas"
+    o = attend_full(q, _kv_view(enc_k, sel, kernel),
+                    _kv_view(enc_v, sel, kernel), mask_kind="bidir",
+                    cap=cfg.attn_softcap,
                     impl="xla" if impl == "seq_shard" else impl)
     return out_proj(cfg, p, o)
 
 
 def cross_kv(cfg: ModelConfig, p, enc_out):
-    """The encoder output's K/V for one decoder layer's cross-attention."""
+    """The encoder output's K/V for one decoder layer's cross-attention:
+    the rank's kv heads where the planner cut wk/wv over "model" (the
+    encoder output entering the split through ``collectives.model_copy``),
+    every kv head otherwise."""
+    if p["wk"].shape[1] < cfg.n_kv_heads:
+        enc_out = collectives.model_copy(enc_out)
     k = _project(enc_out, p["wk"])
     v = _project(enc_out, p["wv"])
     if "bk" in p:

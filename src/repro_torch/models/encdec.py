@@ -14,6 +14,19 @@ where the reference stacks (L, ...). Under ``RunConfig(attn_impl=
 decoder prefill on the flash kernel (cross-attention too, at S = 1 in a
 decode step), the decoder's self-attention in a decode step on the
 decode kernel.
+
+Under a mesh the layers split as the decoder-only ones do
+(``models.attention``, ``models.mlp``): under "model" each rank computes
+its heads of the encoder's self-attention and the decoder's self- and
+cross-attention and its d_ff block of the GELU MLP, the partial outputs
+summed over "model" before ``bo`` and ``b2``; the tied token embedding,
+its LM head and the learned decoder positions are vocab-parallel
+(``transformer.vocab_lookup``, the logits gathered whole). Under "fsdp"
+and "fsdp_tp" every encoder layer, decoder layer, the embedding, the
+positions and each final norm is a unit gathered at its use
+(``dist.collectives.gathered``). The batch's rows, frame embeddings
+included, are cut over the data axes by the engine
+(``EncDecCache.row_shards``).
 """
 from __future__ import annotations
 
@@ -23,8 +36,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import transformer
 from repro_torch.models.common import (AxSpec, ModelConfig, RunConfig,
                                        apply_norm, norm_spec,
                                        sinusoidal_positions)
@@ -81,14 +96,15 @@ def encode(cfg: ModelConfig, run: RunConfig, params, frame_embeds):
     x = frame_embeds.to(torch.bfloat16)
     x = x + sinusoidal_positions(s, d, x.device)[None].to(x.dtype)
     positions = torch.arange(s, device=x.device)[None, :]
-    for p in params["enc_blocks"]:
+    for layer, p in enumerate(params["enc_blocks"]):
+        p = collectives.gathered(p, "enc_blocks", layer)
         h = apply_norm(cfg, p["norm1"], x)
         x = x + attn_lib.attn_forward(cfg, p["attn"], h, mixer="attn",
                                       positions=positions,
                                       impl=run.attn_impl, mask_kind="bidir")
         h = apply_norm(cfg, p["norm2"], x)
         x = x + mlp_lib.mlp_apply(cfg, p["mlp"], h)
-    return apply_norm(cfg, params["enc_final_norm"], x)
+    return apply_norm(cfg, _use(params, "enc_final_norm"), x)
 
 
 # ---------------------------------------------------------------------------
@@ -96,13 +112,30 @@ def encode(cfg: ModelConfig, run: RunConfig, params, frame_embeds):
 # ---------------------------------------------------------------------------
 
 
-def _dec_embed(params, tokens, positions):
-    x = params["embed"].to(torch.bfloat16)[tokens.long()]
-    return x + params["dec_pos"][positions].to(x.dtype)
+def _use(params, name: str):
+    """Top-level leaf ``name`` ready to use (``collectives.gathered``)."""
+    return collectives.gathered(params[name], name)
 
 
-def _dec_head(params, x):
-    return (x @ params["embed"].to(x.dtype).T).float()
+def _dec_embed(cfg: ModelConfig, params, tokens, positions):
+    x = transformer.vocab_lookup(_use(params, "embed").to(torch.bfloat16),
+                                 tokens, cfg.vocab_size)
+    return x + transformer.vocab_lookup(_use(params, "dec_pos"), positions,
+                                        cfg.max_position).to(x.dtype)
+
+
+def _dec_head(cfg: ModelConfig, params, x):
+    """Logits (fp32) of the decoder's final-normed ``x`` through the tied
+    embedding; a vocab-split table's blocks are gathered whole over
+    "model" (``x`` entering the split through ``model_copy``)."""
+    x = apply_norm(cfg, _use(params, "final_norm"), x)
+    w = _use(params, "embed")
+    if w.shape[0] < cfg.vocab_size:
+        x = collectives.model_copy(x)
+    logits = (x @ w.to(x.dtype).T).float()
+    if logits.shape[-1] < cfg.vocab_size:
+        logits = collectives.model_gather(logits, dim=-1)
+    return logits
 
 
 def _cross_mlp(cfg: ModelConfig, run: RunConfig, p, x, ek, ev):
@@ -117,16 +150,17 @@ def _cross_mlp(cfg: ModelConfig, run: RunConfig, p, x, ek, ev):
 def dec_forward(cfg: ModelConfig, run: RunConfig, params, tokens, enc_out):
     """Teacher-forced decoder logits over the full sequence."""
     x, _ = _dec_prefill(cfg, run, params, tokens, enc_out)
-    return _dec_head(params, apply_norm(cfg, params["final_norm"], x))
+    return _dec_head(cfg, params, x)
 
 
 def _dec_prefill(cfg: ModelConfig, run: RunConfig, params, tokens, enc_out):
     """The decoder over the full sequence: (hidden state, per layer the
     self-attention's unpadded (k, v) and the cross (k, v))."""
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    x = _dec_embed(params, tokens, positions)
+    x = _dec_embed(cfg, params, tokens, positions)
     kvs = []
-    for p in params["dec_blocks"]:
+    for layer, p in enumerate(params["dec_blocks"]):
+        p = collectives.gathered(p, "dec_blocks", layer)
         h = apply_norm(cfg, p["norm1"], x)
         h, (k, v) = attn_lib.attn_forward(
             cfg, p["self_attn"], h, mixer="attn", positions=positions,
@@ -154,17 +188,24 @@ def forward(cfg: ModelConfig, run: RunConfig, params, *, enc_embeds, tokens):
 class EncDecCache:
     """Per decoder layer: self-attention K/V (B, max_len, KV, hd) and the
     encoder's cross K/V (B, S_enc, KV, hd), bf16; ``lengths`` (B,) int32,
-    the per-row number of valid decoder tokens."""
+    the per-row number of valid decoder tokens. Under a mesh each leaf
+    holds this rank's kv heads where "model" cuts them and, with
+    ``row_shards`` = D > 1, its B / D rows over the data axes."""
 
     self_k: tuple
     self_v: tuple
     cross_k: tuple
     cross_v: tuple
     lengths: torch.Tensor
+    row_shards: int = 1
 
     def tensors(self):
         return [*self.self_k, *self.self_v, *self.cross_k, *self.cross_v,
                 self.lengths]
+
+    def kv_capacity(self) -> int:
+        """Positions of the decoder's self-attention cache."""
+        return self.self_k[0].shape[1]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int,
@@ -196,8 +237,7 @@ def prefill(cfg: ModelConfig, run: RunConfig, params, *, enc_embeds, tokens,
     pad = (0, 0, 0, 0, 0, max_len - s)
     sk, sv, ck, cv = (tuple(t.to(torch.bfloat16) for t in leaves)
                       for leaves in zip(*kvs))
-    x = apply_norm(cfg, params["final_norm"], x)
-    logits = _dec_head(params, x[:, -1])
+    logits = _dec_head(cfg, params, x[:, -1])
     return logits, EncDecCache(
         tuple(F.pad(k, pad) for k in sk), tuple(F.pad(v, pad) for v in sv),
         ck, cv, torch.full((b,), s, dtype=torch.int32, device=tokens.device))
@@ -209,15 +249,15 @@ def decode_step(cfg: ModelConfig, run: RunConfig, params, cache: EncDecCache,
     (logits (B,V), ``cache``) with the new self-attention k/v written and
     every length advanced by 1, IN PLACE."""
     lengths = cache.lengths
-    x = _dec_embed(params, token, lengths[:, None].long())
+    x = _dec_embed(cfg, params, token, lengths[:, None].long())
     for layer, p in enumerate(params["dec_blocks"]):
+        p = collectives.gathered(p, "dec_blocks", layer)
         h = apply_norm(cfg, p["norm1"], x)
         h = attn_lib.attn_decode_layer(
             cfg, p["self_attn"], h, cache.self_k[layer], cache.self_v[layer],
             lengths, mixer="attn", impl=run.attn_impl)[0]
         x = _cross_mlp(cfg, run, p, x + h, cache.cross_k[layer],
                        cache.cross_v[layer])
-    x = apply_norm(cfg, params["final_norm"], x)
-    logits = _dec_head(params, x[:, 0])
+    logits = _dec_head(cfg, params, x[:, 0])
     cache.lengths.add_(1)
     return logits, cache

@@ -11,13 +11,24 @@ Recurrence: state_s = exp(dt_s A_h) · state_{s-1} + dt_s · x_s ⊗ B_s
 The reference has no Pallas kernel here: the chunked SSD is plain tensor
 code (einsums and a scan over chunks), and so it is here (a Python loop
 over chunks), on the CPU and on the card alike.
+
+Under a "model" axis the planner leaves the "ssm_inner" leaves whole
+(no TP candidate) and cuts the per-head leaves (``wdt``, ``A_log``,
+``dt_bias``, ``D``) by "heads" where the axis divides them, as the
+reference's planner does: every "model" rank runs the whole mixer on the
+replicated residual, those four leaves gathered whole first, in one
+all_gather (:func:`_whole_heads`; the gather's backward keeps the rank's
+block, as every rank computes the same whole grad).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives
 from repro_torch.models.common import AxSpec, ModelConfig, SSMConfig, rms_norm
+
+_HEAD_LEAVES = ("wdt", "A_log", "dt_bias", "D")
 
 # ---------------------------------------------------------------------------
 # Params
@@ -78,6 +89,22 @@ def _expand_groups(t, h):
     return torch.repeat_interleave(t, h // g, dim=-2)
 
 
+def _whole_heads(sc: SSMConfig, d: int, p):
+    """``p`` with its per-head leaves whole where the planner cut them by
+    "heads" over "model": the four stacked as rows of one fp32 (d + 3,
+    heads) block, gathered over "model" in one all_gather, and split
+    back into their dtypes."""
+    h = sc.n_heads(d)
+    if p["A_log"].shape[-1] == h:
+        return p
+    rows = torch.cat([p["wdt"].float()] + [p[name].float()[None]
+                                           for name in _HEAD_LEAVES[1:]])
+    rows = collectives.model_gather(rows, dim=-1)
+    wdt, *rest = rows.split([d, 1, 1, 1])
+    return dict(p, wdt=wdt.to(p["wdt"].dtype),
+                **{name: t[0] for name, t in zip(_HEAD_LEAVES[1:], rest)})
+
+
 def _projections(u, p):
     """z, x, B, C and dt streams of u (B,S,D), in u's dtype."""
     return tuple(u @ p[name].to(u.dtype)
@@ -111,6 +138,7 @@ def ssm_forward(cfg: ModelConfig, sc: SSMConfig, p, u, *,
     """u: (B,S,D) -> (B,S,D); with ``return_state`` also the decode cache
     leaves after the last position."""
     b, s_orig, d = u.shape
+    p = _whole_heads(sc, d, p)
     di = sc.d_inner(d)
     h = sc.n_heads(d)
     hp = sc.head_dim
@@ -199,6 +227,7 @@ def ssm_decode(cfg: ModelConfig, sc: SSMConfig, p, u, cache):
     """u: (B,1,D); cache: conv_x/B/C (B,K-1,.), state (B,H,P,N). Returns
     (out (B,1,D), new cache leaves); ``cache`` is not written."""
     b, _, d = u.shape
+    p = _whole_heads(sc, d, p)
     di = sc.d_inner(d)
     h = sc.n_heads(d)
     hp = sc.head_dim

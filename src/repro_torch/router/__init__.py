@@ -1,10 +1,10 @@
 """Online request router: serverless elasticity over the serving stack.
 
-Counterpart of ``repro.router``, with the same exports but
-``SlicePool``. The layer that puts LIVE traffic on the batched engine:
+Counterpart of ``repro.router``, with the same exports. The layer that puts LIVE traffic on the batched engine:
 an arrival queue with admission control and priority classes, a replica
 pool (each replica = one ``ContinuousBatcher(batched=True)``, dense or
-block-paged, over one shared ``Engine``) with cold starts and
+block-paged, over one shared ``Engine`` or each on its own mesh slice,
+``SlicePool``) with cold starts and
 fault-injected crashes, pluggable autoscaling policies,
 TTFT/TPOT/goodput/cost metrics, and a measured round-time calibration
 (``calibrate.py``). Two loops share one event core (``events.py``):
@@ -28,7 +28,7 @@ from repro_torch.router.policy import (  # noqa: F401
     QueueDepthPolicy, ThroughputPolicy, aws_replica_price_s,
     default_policies, tpu_replica_price_s)
 from repro_torch.router.pool import (  # noqa: F401
-    Replica, ReplicaConfig, ReplicaPool)
+    Replica, ReplicaConfig, ReplicaPool, SlicePool)
 from repro_torch.router.queue import ArrivalQueue, QueueConfig  # noqa: F401
 from repro_torch.router.router import Router, RouterConfig  # noqa: F401
 from repro_torch.router.traffic import (  # noqa: F401

@@ -232,7 +232,8 @@ def measure_round_samples(engine, params, *,
     cadence the router models). Each shape is run once before timing so
     first-call costs (kernel build, allocator growth) never leak into
     the fit; what remains is the per-call overhead + per-item work the
-    round model splits.
+    round model splits. On a multi-rank mesh each sample is the slowest
+    rank's (``Engine.agree``), so every rank fits the same model.
     """
     def sync():
         if engine.device.type == "cuda":
@@ -248,7 +249,7 @@ def measure_round_samples(engine, params, *,
         sync()
         samples.append(RoundSample(
             prefill_tokens=prefill_batch * s, active_slots=0,
-            seconds=time.perf_counter() - t0,
+            seconds=engine.agree(time.perf_counter() - t0),
             source=f"measured:prefill_b{prefill_batch}_s{s}"))
     for b in slot_counts:
         prompt = np.ones((b, max(prompt_lens)), np.int32)
@@ -262,6 +263,6 @@ def measure_round_samples(engine, params, *,
         sync()
         samples.append(RoundSample(
             prefill_tokens=0, active_slots=b,
-            seconds=(time.perf_counter() - t0) / n_steps,
+            seconds=engine.agree((time.perf_counter() - t0) / n_steps),
             source=f"measured:decode_step_b{b}"))
     return samples

@@ -48,6 +48,17 @@ First-token event times within a round starting at ``t0``:
 Decode tokens become visible at the round boundary (``t0 + round_s``)
 under a virtual clock — they are committed by the one batched dispatch
 the round ends with — and at their measured offsets on a wall clock.
+
+Several ranks (one process a rank) run the same core over the same pool
+and must take the same decisions. The modeled and calibrated clocks read
+token counts only, which every rank has, also for a replica whose mesh
+slice it is not in (``pool._Shadow``); the slices' tokens reach every
+rank when the run ends (``ReplicaPool.share_streams``). The measured
+clock reads a host clock: after each round the replica's source rank
+(``ReplicaPool.round_source``: its slice's first rank, or rank 0 of a
+shared mesh) broadcasts the round's seconds, each token's offset into
+it and the tokens over the world group (:func:`_from_source`), which
+makes every rank wait for that round: the slices then take turns.
 """
 from __future__ import annotations
 
@@ -56,6 +67,8 @@ import heapq
 import time
 from collections import deque
 from typing import Any, List, Optional, Sequence, Tuple
+
+import torch
 
 from repro_torch.core.cost_model import AWSPriceBook, TPUPriceBook
 from repro_torch.router.metrics import (RouterReport, billing,
@@ -180,6 +193,7 @@ class _TokenEvent:
     prefill: bool            # True = this request's admission prefill
     host_t: float            # perf_counter at the commit
     cum_prefill_tokens: int  # prompt tokens prefilled through this event
+    index: int               # the token's position in ``req.generated``
 
 
 class _RoundLog:
@@ -199,7 +213,30 @@ class _RoundLog:
             self._cum_ptok += len(req.prompt)
         self.events.append(_TokenEvent(req, tok, prefill,
                                        time.perf_counter(),
-                                       self._cum_ptok))
+                                       self._cum_ptok,
+                                       len(req.generated) - 1))
+
+
+def _from_source(src: int, wall_s: float, log: _RoundLog) -> float:
+    """The round's measured seconds as rank ``src`` read them, with its
+    token events' offsets and tokens written into ``log`` (and into the
+    requests' streams), on every rank: one broadcast over the world group
+    (float64: seconds, offsets, tokens). Returns the seconds."""
+    dist = torch.distributed
+    n = len(log.events)
+    device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    t = torch.zeros(1 + 2 * n, dtype=torch.float64, device=device)
+    if dist.get_rank() == src:
+        t[:] = torch.tensor(
+            [wall_s] + [ev.host_t - log.host_t0 for ev in log.events]
+            + [float(ev.tok) for ev in log.events], dtype=torch.float64)
+    dist.broadcast(t, src=src)
+    got = t.cpu().tolist()
+    for i, ev in enumerate(log.events):
+        ev.host_t = log.host_t0 + got[1 + i]
+        ev.tok = int(got[1 + n + i])
+        ev.req.generated[ev.index] = ev.tok
+    return got[0]
 
 
 class RouterCore:
@@ -275,6 +312,7 @@ class RouterCore:
         self._arrivals = deque()       # recent arrival times
         self._tok_events = deque()     # (t, n) recent token production
         self.events: List[dict] = []   # observability, orchestrator-style
+        self._served: List[Tuple[Request, Any]] = []  # (request, replica)
 
     def attach_obs(self, obs: Any) -> Any:
         """Attach an ``Observability`` (registry + optional tracer) to
@@ -302,8 +340,11 @@ class RouterCore:
         self.events.append({"t": round(self.clock, 4), "kind": kind, **kw})
 
     def _compile_count(self) -> int:
-        """Shape buckets the pool's shared engine has made."""
-        return self.pool.engine.compile_count
+        """Shape buckets the pool's engines have made (this rank's slice
+        engines in mesh-slice mode)."""
+        slices = getattr(self.pool, "slices", None)
+        return (slices.compile_count() if slices is not None
+                else self.pool.engine.compile_count)
 
     def _obs_sync(self) -> None:
         """Gauge refresh + terminal-outcome diff. Rejections and
@@ -460,6 +501,10 @@ class RouterCore:
             wall_s = r.step()
         finally:
             r.batcher.on_token = None
+        src = (self.pool.round_source(r) if self._per_item_s is None
+               else None)
+        if src is not None:  # every rank takes the source rank's clock
+            wall_s = _from_source(src, wall_s, log)
 
         round_s = self._round_seconds(wall_s, n_prefill_tokens,
                                       len(pre_inflight))
@@ -573,6 +618,7 @@ class RouterCore:
         for q in done_now:
             q.finish_t = t_visible
             self.completed.append(q)
+            self._served.append((q, r))
             if obs is not None:
                 obs.m_requests.inc(outcome="completed")
                 obs.trace("finish", t_visible, rid=q.rid,
@@ -617,6 +663,9 @@ class RouterCore:
 
     def _report(self) -> RouterReport:
         self._obs_sync()     # terminal diffs through the final round
+        share = getattr(self.pool, "share_streams", None)
+        if share is not None:  # a mesh slice's tokens onto every rank
+            share(self._served)
         lats = request_latencies(self.completed)
         n_sub = self.queue.n_submitted
         good = sum(

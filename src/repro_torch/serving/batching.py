@@ -67,6 +67,9 @@ class Request:
     finish_t: Optional[float] = None        # last token committed
     n_retries: int = 0
     priority: int = 0       # arrival-queue class: lower dispatches first
+    # the port's addition: an encoder-decoder model's (S_enc, D) frame
+    # embeddings, encoded at admission (None for a decoder-only model)
+    enc_embeds: Optional[np.ndarray] = None
 
     def reset_for_retry(self):
         """Crash re-queue: in-flight work is lost and the request re-runs
@@ -75,6 +78,13 @@ class Request:
         self.generated = []
         self.done = False
         self.n_retries += 1
+
+
+def _frames(req: Request) -> dict:
+    """The admission's frame embeddings as ``Engine.prefill_into`` takes
+    them (none for a decoder-only request)."""
+    return ({} if req.enc_embeds is None
+            else {"enc_embeds": req.enc_embeds[None]})
 
 
 @dataclasses.dataclass
@@ -323,8 +333,10 @@ class ContinuousBatcher:
                     self.max_len = max(
                         len(r.prompt) for r in known
                     ) + self.engine.run.cache_pad
-                self.cache = self.engine.new_cache(self.n_slots,
-                                                   self.max_len)
+                self.cache = self.engine.new_cache(
+                    self.n_slots, self.max_len, **(
+                        {} if req.enc_embeds is None
+                        else {"enc_len": len(req.enc_embeds)}))
             if len(req.prompt) + req.max_new_tokens > self.max_len:
                 self._reject(slot)  # can never fit this cache
                 continue
@@ -333,13 +345,13 @@ class ContinuousBatcher:
                 toks, self.cache = self.engine.prefill_into_sample(
                     self.params, self.cache, slot, req.prompt[None],
                     self._generator(), max_len=self.max_len,
-                    **self._fused_kw())
+                    **self._fused_kw(), **_frames(req))
                 tok = int(toks[0])
                 self._bucket_s["prefill"] += time.perf_counter() - t_pf
             else:
                 logits, self.cache = self.engine.prefill_into(
                     self.params, self.cache, slot, req.prompt[None],
-                    max_len=self.max_len)
+                    max_len=self.max_len, **_frames(req))
                 self._bucket_s["prefill"] += time.perf_counter() - t_pf
                 tok = int(self._sample_host(logits)[0])
             self._tokens[slot, 0] = tok

@@ -48,11 +48,19 @@ vocab-split "model" axis the LM head gathers the logits whole
     layer. A rank then computes as under "tp" ("fsdp": on whole leaves,
     every kv head, so its caches keep the kv heads whole over "model").
 
-These still raise, each naming its ROADMAP item: SSM layers under a
-"model" axis that splits them, encoder-decoder models under a mesh of
-more than one rank, and rows cut over more than one data axis. The reference's guards hold too: int8 KV
-raises under a mesh and paged caches raise (the batcher keeps the dense
-cache).
+Every family serves under these layouts: an SSM mixer runs whole on
+each "model" rank (``models.ssm``), an encoder-decoder model splits its
+encoder, decoder and cross-attention heads over "model" and cuts its
+rows, frame embeddings and ``EncDecCache`` over the data axes (an
+admission encodes its frames once, on the row's owners). Rows cut over
+more than one data axis still raise (ROADMAP Queue 1 #4.4). The
+reference's guards hold too: int8 KV raises under a mesh and paged
+caches raise (the batcher keeps the dense cache).
+
+Replicas on disjoint mesh slices (``router.pool.SlicePool``): each
+slice's engine is :meth:`for_mesh` of a template over a sub-mesh of
+``dist.sharding.slice_meshes``, with its own process groups, so its
+collectives, :meth:`agree` included, span the slice's ranks alone.
 
 The shared-batched-cache admission path (``new_cache`` -> ``prefill_into``
 -> ``decode`` -> ``free_row``) serves continuous batching: one
@@ -88,8 +96,8 @@ from repro_torch.dist import sharding as shd
 from repro_torch.kernels.decode_attention.fused_sampling import (
     fused_sample, gumbel_noise)
 from repro_torch.kernels.decode_attention.quant import KV_DTYPES
-from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import RunConfig
+from repro_torch.models.encdec import EncDecCache
 from repro_torch.models.model_zoo import Model
 from repro_torch.models.transformer import Cache, PagedCache
 from repro_torch.serving.sampler import sample
@@ -110,6 +118,9 @@ def _shape_key(tree) -> tuple:
     ``page_size`` take part in the key, as the reference's treedef does:
     a dense and a paged cache never share a bucket, even where their leaf
     shapes coincide."""
+    if isinstance(tree, EncDecCache):
+        return (("EncDecCache", tree.row_shards),) + tuple(
+            _leaf_key(t) for t in tree.tensors())
     if isinstance(tree, (Cache, PagedCache)):
         head = (("PagedCache", tree.page_size)
                 if isinstance(tree, PagedCache)
@@ -141,28 +152,31 @@ def _check_prompt(s: int, max_len: int):
 def _check_mesh(model: Model, mesh, seq_shard: bool, strategy: str,
                 specs) -> None:
     """The layouts the port serves: a "model" axis under "tp",
-    "fsdp_tp" or with ``seq_shard``, data axes, and params cut over the
-    data axes ("fsdp", "fsdp_tp"); the rest raise, naming their ROADMAP
-    item."""
-    cfg = model.cfg
+    "fsdp_tp" or with ``seq_shard``, one data axis, and params cut over
+    the data axes ("fsdp", "fsdp_tp"), for every family; the rest raise
+    (``dist.sharding.check_layout``)."""
     if strategy not in ("tp", "fsdp", "fsdp_tp"):
         raise ValueError(f"unknown strategy {strategy!r}")
-    data = set(dctx.dp_axes(mesh))
-    shd.check_layout(cfg, mesh, strategy, seq_shard)
-    if sum(dctx.axis_size(a, mesh) > 1 for a in data) > 1:
-        raise NotImplementedError(
-            f"{dict(mesh.shape)}: rows cut over more than one data axis "
-            f"are not served yet (ROADMAP.md Queue 1 #4.4, "
-            f"make_production_mesh)")
-    # "fsdp" gathers every leaf whole: "model" splits nothing there
-    m = dctx.axis_size("model", mesh) if strategy != "fsdp" else 1
-    if m > 1 and not seq_shard and cfg.has_mixer("attn"):
-        # q heads cut over "model", kv heads whole: each block of q heads
-        # must attend whole kv heads in one uniform group
-        attn = next(b["attn"] for b in specs["blocks"] if "attn" in b)
-        if attn["wq"][1] == "model" and attn["wk"][1] is None:
-            for index in range(m):
-                attn_lib.kv_group(cfg, cfg.n_heads // m, index)
+    shd.check_layout(model.cfg, mesh, strategy, seq_shard, plan=specs)
+
+
+def _write_row(cache, small, row: int):
+    """Row 0 of the one-row cache ``small`` (an admission's prefill)
+    written into row ``row`` of the shared ``cache``, in place: each
+    leaf's leading positions (KV) or whole row (SSM state, an
+    encoder-decoder model's cross K/V), and the row's length."""
+    if isinstance(cache, EncDecCache):
+        pairs = [(big, sm) for name in ("self_k", "self_v", "cross_k",
+                                        "cross_v")
+                 for big, sm in zip(getattr(cache, name),
+                                    getattr(small, name))]
+    else:
+        pairs = [(big[name], t) for big, sm in zip(cache.layers,
+                                                   small.layers)
+                 for name, t in sm.items()]
+    for big, t in pairs:
+        big[row, :t.shape[1]].copy_(t[0])
+    cache.lengths[row] = small.lengths[0]
 
 
 def _is_spec(x) -> bool:
@@ -281,12 +295,55 @@ class Engine:
         on every rank, as their collectives need."""
         if self.mesh is None or int(self.mesh.devices.size) <= 1:
             return seconds
+        group = self.mesh.group(tuple(self.mesh.axis_names))
         t = torch.tensor([float(seconds)], dtype=torch.float64,
                          device=self.device)
-        if torch.distributed.get_backend() == "gloo":
+        if torch.distributed.get_backend(group) == "gloo":
             t = t.cpu()
-        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX,
+                                     group=group)
         return float(t[0])
+
+    def for_mesh(self, mesh: Optional[dctx.Mesh]) -> "Engine":
+        """A fresh engine over the same model, run knobs and resolved
+        ``strategy`` bound to ``mesh`` (a slice of ``slice_meshes``, or
+        None): its own shape buckets and plan. The router's mesh-sliced
+        pool gives every replica one (``router.pool.SlicePool``)."""
+        return dataclasses.replace(self, mesh=mesh)
+
+    def shard_inputs(self, batch):
+        """This rank's rows of every input leaf (dim 0 cut over the data
+        axes as ``dist.sharding.input_shardings`` plans it), as tensors
+        on the engine's device; the whole batch without a mesh."""
+        def one(x):
+            x = x if isinstance(x, torch.Tensor) else torch.as_tensor(
+                np.asarray(x))
+            x = x.to(self.device)
+            if self.mesh is None:
+                return x
+            return shd.rank_sharding(shd.input_shardings(x, self.mesh),
+                                     self.mesh).slice(x)
+        return tree_map(one, batch)
+
+    def cache_sharding(self, cache):
+        """The planned spec tree of ``cache`` (``dist.sharding.
+        cache_shardings``, with the kv heads whole over "model" under
+        "fsdp" as :meth:`new_cache` lays them out); None without a mesh."""
+        if self.mesh is None:
+            return None
+        plan = shd.cache_shardings(cache, self.model.cfg, self.mesh,
+                                   seq_shard=self.seq_shard)
+        if self.strategy != "fsdp" or self.seq_shard:
+            return plan
+
+        def whole(spec):
+            return shd.drop_axis(spec, "model") if len(spec) >= 4 else spec
+        if isinstance(plan, Cache):
+            return dataclasses.replace(plan, layers=tuple(
+                {name: whole(spec) for name, spec in layer.items()}
+                for layer in plan.layers))
+        return {name: tree_map(whole, specs, is_leaf=_is_spec)
+                for name, specs in plan.items()}
 
     # -- the batch's rows over the data axes ---------------------------
 
@@ -331,6 +388,22 @@ class Engine:
         if not self.seq_shard:
             return 1, 0
         return shd.seq_blocks(self.mesh, max_len)
+
+    def _frames(self, enc_embeds) -> dict:
+        """``{"enc_embeds": ...}`` on the device for an encoder-decoder
+        model (which needs them), ``{}`` for any other."""
+        if not self.model.cfg.encdec:
+            if enc_embeds is not None:
+                raise ValueError(f"{self.model.cfg.name} takes no "
+                                 f"enc_embeds")
+            return {}
+        if enc_embeds is None:
+            raise ValueError(f"{self.model.cfg.name} is an encoder-decoder "
+                             f"model: pass its frame embeddings "
+                             f"(enc_embeds)")
+        x = (enc_embeds if isinstance(enc_embeds, torch.Tensor)
+             else torch.as_tensor(np.asarray(enc_embeds, np.float32)))
+        return {"enc_embeds": x.to(self.device, torch.bfloat16)}
 
     def _tokens_in(self, tokens) -> torch.Tensor:
         """Token ids (array or tensor) as a long tensor on the device;
@@ -380,7 +453,7 @@ class Engine:
                     self.run, params,
                     {k: self._block(v, n, i) for k, v in batch.items()},
                     max_len=max_len, seq_shards=shards, shard=shard)
-            if isinstance(cache, Cache):
+            if isinstance(cache, (Cache, EncDecCache)):
                 cache.row_shards = n
             return self._whole(logits, n), cache
         return _prefill
@@ -400,9 +473,9 @@ class Engine:
             return self._whole(logits, n), cache
         return _decode
 
-    def _prefill_into_fn(self, cache: Cache, max_len: int,
+    def _prefill_into_fn(self, cache, max_len: int,
                          sample_kw: Optional[dict] = None):
-        shards = cache.seq_shards
+        shards = getattr(cache, "seq_shards", 1)
         shard = 0
         if shards > 1:  # a rank's block of the whole capacity: prefill it
             max_len = cache.kv_capacity()
@@ -423,10 +496,7 @@ class Engine:
                         self.run, params, batch, max_len=max_len,
                         seq_shards=shards, shard=shard)
                 if own:  # KV rows (the prompt's), SSM state rows (whole)
-                    for big, sm in zip(cache.layers, small.layers):
-                        for name, t in sm.items():
-                            big[name][row, :t.shape[1]].copy_(t[0])
-                    cache.lengths[row] = small.lengths[0]
+                    _write_row(cache, small, row)
                 out = (logits if sample_kw is None else self._sample(
                     logits, generator, 1, 1, 0, sample_kw))
             else:  # another shard's row: keep the generator in step
@@ -467,17 +537,19 @@ class Engine:
     # Prefill / decode
     # ------------------------------------------------------------------
 
-    def prefill(self, params, tokens, *, max_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Cache]:
+    def prefill(self, params, tokens, *, max_len: Optional[int] = None,
+                enc_embeds=None) -> Tuple[torch.Tensor, Cache]:
         """tokens (B, S) -> (last-token logits (B, V), populated cache of
         capacity ``max_len``, default S + ``run.cache_pad``; under a
-        seq-shard mesh, this rank's block of it)."""
+        seq-shard mesh, this rank's block of it). An encoder-decoder
+        model takes its (B, S_enc, D) frame embeddings as ``enc_embeds``
+        and returns an ``EncDecCache``."""
         tokens = self._tokens_in(tokens)
         b, s = tokens.shape
         if max_len is None:
             max_len = s + self.run.cache_pad
         _check_prompt(s, max_len)
-        batch = {"tokens": tokens}
+        batch = {"tokens": tokens, **self._frames(enc_embeds)}
         fn = self._get_exec("prefill", (_shape_key(batch), max_len),
                             lambda: self._prefill_fn(max_len))
         with self._ctx(), torch.no_grad():
@@ -497,12 +569,15 @@ class Engine:
     # Shared batched cache: allocation / row admission / row free
     # ------------------------------------------------------------------
 
-    def new_cache(self, batch: int, max_len: int) -> Cache:
+    def new_cache(self, batch: int, max_len: int,
+                  enc_len: Optional[int] = None):
         """Allocate an EMPTY shared batched decode cache (all lengths 0)
         on the engine's device: the backing store of continuous batching,
         admitted into by :meth:`prefill_into`, freed by :meth:`free_row`.
-        Under a seq-shard mesh it is this rank's block of the planned
-        layout: no rank ever holds the whole cache.
+        Under a mesh it is this rank's slice of the planned layout
+        (:meth:`cache_sharding`): no rank ever holds the whole cache. An
+        encoder-decoder model's holds ``enc_len`` cross-attention
+        positions (default ``max_len``).
         """
         if batch <= 0 or max_len <= 0:
             raise ValueError(
@@ -511,37 +586,37 @@ class Engine:
         if self.mesh is None:
             return self.model.init_cache(batch, max_len,
                                          kv_dtype=self.run.kv_dtype,
-                                         device=self.device)
+                                         device=self.device, enc_len=enc_len)
         # under a mesh the reference allocates through a pinned executable:
         # one more shape bucket, counted as it counts it
-        specs = self.model.cache_specs(batch, max_len, self.run.kv_dtype)
+        specs = self.model.cache_specs(batch, max_len, self.run.kv_dtype,
+                                       enc_len=enc_len)
         return self._get_exec("new_cache", _shape_key(specs),
                               lambda: lambda: self._alloc_cache(specs))()
 
-    def _alloc_cache(self, specs: Cache) -> Cache:
+    def _alloc_cache(self, specs):
         """Zeros of this rank's slice of every leaf of the whole cache
-        ``specs`` (meta tensors), as ``dist.sharding.cache_shardings``
-        lays it out; under "fsdp" the kv heads stay whole over "model", as
-        the gathered leaves compute every head there."""
-        plan = shd.cache_shardings(specs, self.model.cfg, self.mesh,
-                                   seq_shard=self.seq_shard)
-        if self.strategy == "fsdp" and not self.seq_shard:
-            plan = dataclasses.replace(
-                plan, layers=tuple(
-                    {name: shd.drop_axis(spec, "model")
-                     for name, spec in layer.items()}
-                    for layer in plan.layers))
+        ``specs`` (meta tensors), as :meth:`cache_sharding` lays it out."""
+        plan = self.cache_sharding(specs)
 
         def zeros(t, spec):
             shape = shd.rank_sharding(spec, self.mesh).local_shape(t.shape)
             return torch.zeros(shape, dtype=t.dtype, device=self.device)
+        b = specs.lengths.shape[0]
+        if isinstance(specs, EncDecCache):
+            out = {name: tuple(zeros(t, spec) for t, spec in zip(
+                getattr(specs, name), plan[name]))
+                for name in ("self_k", "self_v", "cross_k", "cross_v")}
+            lengths = zeros(specs.lengths, plan["lengths"])
+            return EncDecCache(**out, lengths=lengths,
+                               row_shards=b // lengths.shape[0])
         layers = tuple({name: zeros(t, plan.layers[i][name])
                         for name, t in layer.items()}
                        for i, layer in enumerate(specs.layers))
         lengths = zeros(specs.lengths, plan.lengths)
         return Cache(layers=layers, lengths=lengths,
                      seq_shards=self._seq_block(specs.kv_capacity() or 0)[0],
-                     row_shards=specs.lengths.shape[0] // lengths.shape[0])
+                     row_shards=b // lengths.shape[0])
 
     def _row_len(self, cache: Cache, s: int, max_len: Optional[int]) -> int:
         """The prefill length of an admission: ``max_len``, default the
@@ -559,21 +634,23 @@ class Engine:
         _check_prompt(s, max_len)
         return max_len
 
-    def prefill_into(self, params, cache: Cache, row: int, tokens, *,
-                     max_len: Optional[int] = None
-                     ) -> Tuple[torch.Tensor, Cache]:
+    def prefill_into(self, params, cache, row: int, tokens, *,
+                     max_len: Optional[int] = None, enc_embeds=None
+                     ) -> Tuple[torch.Tensor, Any]:
         """Admit one request into row ``row`` of a shared batched cache.
 
         tokens: (1, S). Prefills against the cache's capacity ``max_len``
         (inferred from the cache when omitted), then writes the KV rows
         and ``lengths[row] = S`` into the shared cache in place. One
-        bucket per (cache, prompt shape), not per slot. Returns
-        (last-token logits (1, V), cache).
+        bucket per (cache, prompt shape), not per slot. An
+        encoder-decoder model's admission encodes its (1, S_enc, D)
+        ``enc_embeds`` (on the row's owners) and writes the row's cross
+        K/V too. Returns (last-token logits (1, V), cache).
         """
         tokens = self._tokens_in(tokens)
         s = tokens.shape[1]
         max_len = self._row_len(cache, s, max_len)
-        batch = {"tokens": tokens}
+        batch = {"tokens": tokens, **self._frames(enc_embeds)}
         fn = self._get_exec(
             "prefill_into", (_shape_key(cache), _shape_key(batch)),
             lambda: self._prefill_into_fn(cache, max_len))
@@ -747,19 +824,19 @@ class Engine:
         with self._ctx(), torch.no_grad():
             return fn(params, cache, token, generator)
 
-    def prefill_into_sample(self, params, cache: Cache, row: int, tokens,
+    def prefill_into_sample(self, params, cache, row: int, tokens,
                             generator: Optional[torch.Generator], *,
                             temperature: float = 0.0,
                             top_k: Optional[int] = None,
                             top_p: Optional[float] = None,
-                            max_len: Optional[int] = None
-                            ) -> Tuple[torch.Tensor, Cache]:
+                            max_len: Optional[int] = None,
+                            enc_embeds=None) -> Tuple[torch.Tensor, Any]:
         """:meth:`prefill_into` with the first sampled token fused in.
         Returns ((1,) int32 token, cache)."""
         tokens = self._tokens_in(tokens)
         s = tokens.shape[1]
         max_len = self._row_len(cache, s, max_len)
-        batch = {"tokens": tokens}
+        batch = {"tokens": tokens, **self._frames(enc_embeds)}
         kw = dict(temperature=temperature, top_k=top_k, top_p=top_p)
         fn = self._get_exec(
             "prefill_into_sample",

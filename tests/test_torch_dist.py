@@ -83,28 +83,55 @@ def test_mesh_context_and_constrain():
 
 
 def test_unported_layouts_name_their_roadmap_item(qwen):
-    """Layouts the port still refuses, each naming its ROADMAP item: an
-    SSM model under "model", an encoder-decoder model on several ranks, a
+    """Layouts the port still refuses, each naming its ROADMAP item: a
     GQA layout whose q-head blocks map onto no uniform kv group (6 q
     heads over 2 kv heads on 3 ranks: 2 a rank, groups of 3), and rows
-    cut over two data axes. (The ZeRO layouts "fsdp" and "fsdp_tp" are
-    served: ``test_torch_zero.py``.)"""
+    cut over two data axes. An SSM model under "model" and an
+    encoder-decoder model on several ranks, once refused here, are now
+    laid out: mamba2's per-head leaves cut by "heads" and its
+    "ssm_inner" leaves whole, as the reference's planner leaves them;
+    whisper's ``EncDecCache`` with its self and cross K/V rows over
+    "data" and kv heads over "model". (The ZeRO layouts "fsdp" and
+    "fsdp_tp" are served: ``test_torch_zero.py``; the families served on
+    gloo ranks: ``test_torch_mesh_families.py``.)"""
+    def mesh(shape):
+        return dctx.Mesh(np.arange(int(np.prod(shape))).reshape(shape),
+                         ("data", "model"))
     gqa = dataclasses.replace(qwen["cfg"], n_heads=6, n_kv_heads=2,
                               name="gqa-6-2")
-    cases = [(configs.smoke("mamba2-130m"), (1, 2), None,
-              r"Queue 1 #4\.5, SSM and encoder-decoder"),
-             (configs.smoke("whisper-base"), (2, 1), None,
-              r"Queue 1 #4\.5, SSM and encoder-decoder"),
-             (gqa, (1, 3), None, r"Queue 3, differences by design")]
-    for cfg, shape, strategy, match in cases:
-        mesh = dctx.Mesh(np.arange(int(np.prod(shape))).reshape(shape),
-                         ("data", "model"))
-        with pytest.raises(NotImplementedError, match=match):
-            Engine(build(cfg), RunConfig(), device="cpu", mesh=mesh,
-                   strategy=strategy)
-    mesh = dctx.Mesh(np.arange(4).reshape(2, 2, 1), ("pod", "data", "model"))
+    with pytest.raises(NotImplementedError,
+                       match=r"Queue 3, differences by design"):
+        Engine(build(gqa), RunConfig(), device="cpu", mesh=mesh((1, 3)))
+    grid = dctx.Mesh(np.arange(4).reshape(2, 2, 1), ("pod", "data", "model"))
     with pytest.raises(NotImplementedError, match=r"Queue 1 #4\.4"):
-        Engine(build(qwen["cfg"]), RunConfig(), device="cpu", mesh=mesh)
+        Engine(build(qwen["cfg"]), RunConfig(), device="cpu", mesh=grid)
+
+    cfg = configs.smoke("mamba2-130m")
+    eng = Engine(build(cfg), RunConfig(), device="cpu", mesh=mesh((1, 2)))
+    assert eng.strategy == "tp"
+    ssm = eng.params_sharding["blocks"][0]["ssm"]
+    assert ssm["wdt"].spec == (None, "model")
+    assert ssm["A_log"].spec == ("model",) and ssm["D"].spec == ("model",)
+    assert all(ssm[k].replicated for k in ("wx", "wz", "out_proj",
+                                           "norm_scale", "conv_wx"))
+    cache = eng.new_cache(4, 16)
+    assert cache.layers[0]["state"].shape[0] == 4  # batch-only rule
+
+    cfg = configs.smoke("whisper-base")
+    for shape, rows, kv in (((2, 1), 2, cfg.n_kv_heads),
+                            ((1, 2), 4, cfg.n_kv_heads // 2),
+                            ((2, 2), 2, cfg.n_kv_heads // 2)):
+        eng = Engine(build(cfg), RunConfig(), device="cpu",
+                     mesh=mesh(shape))
+        cache = eng.new_cache(4, 16, enc_len=12)
+        assert cache.row_shards == 4 // rows
+        assert cache.cross_k[0].shape == (rows, 12, kv, cfg.head_dim)
+        assert cache.self_v[-1].shape == (rows, 16, kv, cfg.head_dim)
+        assert cache.lengths.shape == (rows,)
+        frames = eng.shard_inputs({"enc_embeds": np.zeros((4, 12, 64)),
+                                   "tokens": np.zeros((4, 8), np.int32)})
+        assert frames["enc_embeds"].shape == (rows, 12, 64)
+        assert frames["tokens"].shape == (rows, 8)
 
 
 # ---------------------------------------------------------------------------

@@ -834,6 +834,11 @@ FAMILY_FLASH_CASES = [
     (1, 4608, 4608, 4, 2, 128, True, 4096, 50.0),    # gemma2 local layer
     (1, 1, 1500, 8, 8, 64, False, None, None),       # whisper cross, S 1
     (4, 1, 1500, 8, 8, 64, False, None, None),
+    # whisper-base on a "model" axis of 2: 4 heads a rank, the encoder's
+    # bidirectional self-attention over 1 500 frames and the decoder's
+    # cross-attention of one row over them
+    (4, 1500, 1500, 4, 4, 64, False, None, None),
+    (4, 1, 1500, 4, 4, 64, False, None, None),
 ]
 
 
@@ -876,6 +881,10 @@ FAMILY_DECODE_CASES = [
     (4, 96, 8, 192, 512, (0, 511, 512, 300), None, None),
     (3, 24, 2, 192, 300, (10, 299, 150), 64, 30.0),
     (4, 32, 16, 128, 5120, (4000, 4096, 5119, 300), 4096, 50.0),
+    # whisper-base's decoder self-attention at 4 heads a rank (D 64), and
+    # a qwen2-7b replica on a (1, 2) slice: 14 q over 2 kv heads a rank
+    (4, 4, 4, 64, 32, (0, 9, 31, 16), None, None),
+    (4, 14, 2, 128, 512, (63, 200, 511, 0), None, None),
 ]
 
 
@@ -964,3 +973,31 @@ def test_sampling_kernel_logits_staging_at_vocab_256000_on_card(cuda):
     want = fs.fused_sample_ref(logits, noise, cutoff, temperature=0.8,
                                top_k=50)
     torch.testing.assert_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [dict(temperature=0.8, top_k=50),
+                                dict(temperature=0.8, top_p=0.9)],
+                         ids=["top_k", "top_p"])
+def test_sampling_kernel_at_whisper_vocab_on_card(cuda, kw):
+    """whisper-base's vocabulary (V 51 865) on the logits a "model"-split
+    LM head gathers whole, 4 rows: the tokens equal the plain epilogue's
+    on the same noise and cutoff."""
+    b, v = 4, 51_865
+    g = torch.Generator(device=cuda).manual_seed(11)
+    logits = torch.randn(b, v, generator=g, device=cuda) * 3
+    top_k, top_p = kw.get("top_k"), kw.get("top_p")
+    z = fs.apply_filters(logits, temperature=kw["temperature"], top_k=top_k)
+    cutoff = (fs.nucleus_cutoff(z, top_p) if top_p is not None
+              else torch.zeros(b, 1, device=cuda))
+    noise = fs.gumbel_noise(logits.shape, g, cuda)
+    before = fs.launches
+    got = fs.fused_sample_kernel(logits, noise, cutoff,
+                                 temperature=kw["temperature"], top_k=top_k,
+                                 use_top_p=top_p is not None)
+    torch.cuda.synchronize()
+    assert fs.launches == before + 1
+    want = fs.fused_sample_ref(logits, noise, cutoff,
+                               temperature=kw["temperature"], top_k=top_k,
+                               use_top_p=top_p is not None)
+    assert torch.equal(got, want)

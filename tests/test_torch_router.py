@@ -334,9 +334,17 @@ def test_router_on_a_spot_profile_equals_reference(stacks):
 
 
 def test_mesh_slices_raise_naming_the_roadmap_item(stacks):
-    with pytest.raises(NotImplementedError, match="Queue 1 #4.3"):
-        pr.ReplicaPool(stacks["engine"], stacks["params"], mesh_slices=2)
-    assert not hasattr(pr, "SlicePool")
+    """``ReplicaPool(mesh_slices=2)`` on a meshless engine: two one-rank
+    slices, so capacity 2, and a third spawn is declined (the name is
+    kept from when the mode raised)."""
+    pool = pr.ReplicaPool(stacks["engine"], stacks["params"],
+                          mesh_slices=2)
+    assert pool.capacity() == 2
+    a, b = pool.spawn(0.0), pool.spawn(0.0)
+    assert (a.slice_idx, b.slice_idx) == (0, 1) and a.computes
+    assert pool.spawn(0.0) is None
+    assert a.batcher.engine is not b.batcher.engine
+    assert a.batcher.engine.mesh is None
 
 
 def test_store_fetch_time_follows_each_package_pickle(stacks):
@@ -521,15 +529,30 @@ def test_serve_one_rank_seq_shard_mesh_runs():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--router", "--mesh", "1x2", "--router-arch", "mamba2-130m"],
-     "Queue 1 #4.5, SSM and encoder-decoder"),
-    (["--http", "--mesh", "2x1"], "Queue 1 #4.3"),
-    (["--router", "--mesh-slices", "2"], "Queue 1 #4.3"),
-    (["--calibrate", "--mesh", "1x2"], "Queue 1 #4.3"),
+    (["--router", "--mesh", "1x2", "--router-arch", "mamba2-130m",
+      "--horizon", "1"], None),
+    (["--http", "--mesh", "2x1"], "Queue 1 #4.7"),
+    (["--router", "--mesh-slices", "2", "--horizon", "1"], None),
+    (["--calibrate", "--mesh", "1x2"], None),
 ])
-def test_serve_modes_not_ported_raise(argv, match):
-    with pytest.raises(SystemExit, match=match):
-        serve.main(argv + ["--device", "cpu"])
+def test_serve_modes_not_ported_raise(argv, match, tmp_path):
+    """Only ``--http`` on a multi-rank mesh still exits, naming its
+    ROADMAP item; mamba2 under "model", ``--mesh-slices`` and
+    ``--calibrate`` on a mesh now run to completion (the name is kept
+    from when they exited)."""
+    if "--calibrate" in argv:
+        argv = argv + ["--calibration", str(tmp_path / "calibration.json")]
+    if match is not None:
+        with pytest.raises(SystemExit, match=match):
+            serve.main(argv + ["--device", "cpu"])
+        return
+    out = serve.main(argv + ["--device", "cpu"], rank_timeout=240)
+    if "--calibrate" in argv:
+        assert (tmp_path / "calibration.json").exists()
+        assert out["calibration"]
+    else:
+        assert all(s["n_completed"] == s["n_submitted"] > 0
+                   for s in out.values())
 
 
 def test_serve_defaults_to_the_card():
