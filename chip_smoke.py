@@ -40,7 +40,7 @@ points and checks what comes out:
        when sampled, nothing else), then
        on tamed q/k against the dense kernel path, and a decode round;
   (h)  the same mesh path on ranks that share the card (spawned
-       processes, gloo): two ranks at full width, four at 2 layers;
+       processes, gloo): two ranks at full width and 8 layers, four at 2;
        streams bit-identical on every rank, decode round and all_reduce
        time.
   (i)  the paper's Fig. 2: ``benchmarks.fig2.measure_real_per_item`` on
@@ -59,7 +59,7 @@ points and checks what comes out:
        ``--router``, ``--calibrate`` and ``--http`` at the smoke config
        ``main`` serves.
   (n)  the batch DAG (``launch.serve.run_batch_dag``) on the full-width
-       ``qwen2-7b`` at 14 of its 28 layers, at the reference CLI's
+       ``qwen2-7b`` at 8 of its 28 layers, at the reference CLI's
        defaults with 64-token prompts:
        monolithic, parallel, the chaos ladder, a spot mix and all-spot,
        one digest, equal to one batcher's greedy streams; round times and
@@ -102,7 +102,17 @@ points and checks what comes out:
        all 28 layers, a ``Router`` over ``ReplicaPool(mesh_slices=2)`` on
        (2, 2) (two (1, 2) "tp" slices computing concurrently), on the
        modeled and the measured clock, then ``launch.serve --router
-       --mesh 2x2 --mesh-slices 2`` as a user types it.
+       --mesh 2x2 --mesh-slices 2`` as a user types it;
+  (u)  the port's last modules: (u1) qwen2-7b, all 28 layers, served
+       through the HTTP front door on (r)'s four ranks as a (2, 2) "tp"
+       mesh (rank 0 binds the port and ticks every rank's router), greedy
+       and fused sampled, held to one rank's front door, then ``launch.serve
+       --http --mesh 2x2`` as a user types it; (u2) qwen2-7b at 8 layers on
+       a ("pod", "data", "model") (2, 2, 1) mesh, rows cut over both data
+       axes, held to one rank; (u3) ``launch.train --arch`` mamba2-130m and
+       qwen2-moe-a2.7b beside (p)'s runs, crashed and resumed bit for bit;
+       (u4) ``launch.dryrun`` cells of the production mesh on the host's
+       CPU beside phases (q)-(t), the card never initialised there.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Any failed phase raises, so the script exits non-zero and
@@ -122,6 +132,7 @@ JSON line and, last, ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import asyncio
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -361,6 +372,13 @@ DECODE_CASES = [
      torch.bfloat16),
     ("t_slice_14_2", 4, 14, 2, 128, 512, _R_LENGTHS[:4], None, None,
      torch.bfloat16),
+    # phase (u): the front door's rounds on (2, 2) "tp", one data shard's 2
+    # rows of a 4-slot replica at 14/2 heads (a 280-position cache: 256 +
+    # 16 + 8), and (2, 2, 1)'s 2 rows a rank over pod x data at 28/4
+    ("u_front_door_rows2_14_2", 2, 14, 2, 128, 280, _R_LENGTHS[:2], None,
+     None, torch.bfloat16),
+    ("u_pod_data_rows2", 2, 28, 4, 128, 512, _R_LENGTHS[2:4], None, None,
+     torch.bfloat16),
 ]
 # decode cases timed beside the serving path's shape (the first case)
 TIMED_DECODE = ("gemma2_window_softcap", "nemotron_d192")
@@ -401,6 +419,8 @@ SAMPLE_CASES = [
     # admission's 1
     ("t_whisper_b2_v51865", 2, 51865, PATH_SAMPLING, None, "randn"),
     ("t_whisper_b1_v51865", 1, 51865, PATH_SAMPLING, None, "randn"),
+    # phase (u1)'s sampled front door: one data shard's 2 rows a round
+    ("u_front_door_b2", 2, VOCAB, PATH_SAMPLING, None, "randn"),
     ("device_memory", 2, 1_000_000, PATH_SAMPLING, None, "randn"),
     ("top_k_1", 8, VOCAB, dict(temperature=0.8, top_k=1), None, "randn"),
     ("top_k_v", 2, VOCAB, dict(temperature=0.8, top_k=VOCAB), None,
@@ -2725,13 +2745,17 @@ def run_paged_int8(dev) -> dict:
 # Phase (h): seq-sharded serving on ranks that share the card
 # ---------------------------------------------------------------------------
 
-# (name, ranks, layers, requests): two ranks at all 28 layers on the card
-# sizes, then four at RANK4_LAYERS layers on fewer requests (the only run
-# where one row spans more than two shards), each held to one device.
-# RANK4_LAYERS was the job's 4 until phase (r) took the script past 85% of
-# its time limit (1 031 s on an H100 with 4).
+# (name, ranks, layers, requests): two ranks at RANK2_LAYERS layers on the
+# card sizes, then four at RANK4_LAYERS layers on fewer requests (the only
+# run where one row spans more than two shards), each held to one device
+# within the near-tie bound phase (g) measured at (g)'s depth. RANK4_LAYERS
+# was the job's 4 until phase (r) took the script past 85% of its time
+# limit (1 031 s on an H100 with 4); the two ranks ran all 28 layers until
+# phase (u) joined a script at 93% of its limit (1 112.3 s, PERF.md §6)
+RANK2_LAYERS = SEQ_LAYERS
 RANK4_LAYERS = 2
-RANK_RUNS = [("seq_shard_qwen2_7b_2_ranks", 2, None, GEN.n_requests),
+RANK_RUNS = [(f"seq_shard_qwen2_7b_{RANK2_LAYERS}_layers_2_ranks", 2,
+              RANK2_LAYERS, GEN.n_requests),
              (f"seq_shard_qwen2_7b_{RANK4_LAYERS}_layers_4_ranks", 4,
               RANK4_LAYERS, 8)]
 RANK_TIMEOUT_S = 600
@@ -2743,16 +2767,14 @@ def rank_worker(spec_path: str):
     shared card; continuous batching with its launch counts, the cache's
     block and address, a decode round on CUDA events, and the time spent
     in all_reduce per round. Rank 0 also holds the streams to a
-    single-device dense kernel run of the same model at near-ties: within
-    the bound phase (g) measured or, at all 28 layers, the bound this run
-    measures as (g) does (the dense kernel path against this mesh,
-    teacher-forced). Writes its result as JSON beside the spec."""
+    single-device dense kernel run of the same model at near-ties, within
+    the bound phase (g) measured. Writes its result as JSON beside the
+    spec."""
     spec = json.loads(Path(spec_path).read_text())
     dev = init_from_env("cuda")
     rank, world = rank_env()
-    cfg = configs.get("qwen2-7b")
-    if spec["layers"]:
-        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    cfg = dataclasses.replace(configs.get("qwen2-7b"),
+                              n_layers=spec["layers"])
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
     tame_attention(cfg, params)
@@ -2801,14 +2823,7 @@ def rank_worker(spec_path: str):
     prof = profile_round(lambda: engine.decode(params, cache, tok))
     del cache
     dense = Engine(model, serve_cluster.RUN, device=dev)
-    tie, tf = spec["tie"], None
-    if spec["layers"] is None:
-        tf = teacher_forced([(dense, False), (engine, False)], params,
-                            batch, TEACHER_ROUNDS)
-        if tf["rel_rms"] > SEQ_RTOL:
-            raise AssertionError(f"seq-shard on {world} ranks vs dense "
-                                 f"kernel path: {tf}")
-        tie = NOISE_FACTOR * tf["max_abs_diff"] + LOGIT_FLOOR
+    tie = spec["tie"]
     out = {"rank": rank, "ranks": world, "layers": cfg.n_layers,
            "requests": len(reqs), "rounds": b.rounds,
            "tokens": res["tokens"], "wall_s": res["wall_s"],
@@ -2820,7 +2835,7 @@ def rank_worker(spec_path: str):
            "timed_round_ms": timed_round_ms,
            "busy_ms": prof["busy_ms"], "launches_per_round": prof["launches"],
            "idle_share": 1 - prof["busy_ms"] / round_ms,
-           "teacher_forced": tf, "near_tie_bound": tie}
+           "near_tie_bound": tie}
     if rank == 0:  # the same model on one device, dense kernels
         ref = serve_cluster.make_requests(
             cfg.vocab_size, spec["n_requests"], GEN.prompt_len,
@@ -3505,6 +3520,11 @@ DAG = dict(dag_items=48, dag_shard_size=8, dag_workers=6, n_slots=4,
 # 1.0/s; all-spot lands two at 1.0/s
 DAG_SPOT, DAG_SPOT_RATE = 4, 0.75
 DAG_ALL_SPOT_RATE = 1.0
+# qwen2-7b's widths at DAG_LAYERS of its 28 layers: the phase ran 150-168 s
+# at 28 and the script, with phase (u), past its 1 200 s limit on a slow
+# host (PERF.md §6); every digest, stage and kill is the same at any
+# depth
+DAG_LAYERS = 8
 # the calibrated pair's clock: decode rounds at 1-4 slots (each the mean
 # of DAG_CAL_STEPS calls) and prefills of 64 and 128 tokens, the fastest
 # of DAG_CAL_REPEATS samples a shape
@@ -3531,7 +3551,7 @@ def run_batch_dag_phase(dev) -> dict:
     times; and the mono/parallel pair again on a clock calibrated from
     this engine's own rounds (printed, not gated). Returns the DAG path's
     launch counts."""
-    cfg = configs.get("qwen2-7b")
+    cfg = dataclasses.replace(configs.get("qwen2-7b"), n_layers=DAG_LAYERS)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
     engine, params = serve.lm_engine(cfg, device=dev, params=params,
@@ -3901,6 +3921,9 @@ def run_training_phase(dev) -> dict:
 
 TRAIN_CLI_STEPS, TRAIN_CLI_CRASH = 40, 20
 TRAIN_CLI_TIMEOUT_S = 600
+# (u3): ``launch.train --arch`` at the smoke config of the families beside
+# the default decoder LM (the SSM and the MoE model), crashed and resumed
+U_TRAIN_ARCHS = ("mamba2-130m", "qwen2-moe-a2.7b")
 POD_RANKS, POD_STEPS = 2, 3
 # the pod run's losses against the one-rank run's: the first step from the
 # same params, the later ones after int8-compressed updates
@@ -3916,18 +3939,21 @@ def final_checkpoint(ckpt_dir: Path) -> dict:
 
 
 def start_train_cli() -> dict:
-    """Start ``python -m repro_torch.launch.train`` and ``python -m
-    repro_torch.examples.train_100m`` as a user runs them (no --device),
-    each with a crash at TRAIN_CLI_CRASH and straight through: four
-    processes at once. :func:`finish_train_cli` waits for them."""
+    """Start ``python -m repro_torch.launch.train`` (the default arch, then
+    phase (u3)'s ``--arch`` of each family in U_TRAIN_ARCHS) and ``python
+    -m repro_torch.examples.train_100m`` as a user runs them (no
+    --device), each with a crash at TRAIN_CLI_CRASH and straight through:
+    eight processes at once. :func:`finish_train_cli` waits for them."""
     root = ROOT / "build" / "train_cli"
     shutil.rmtree(root, ignore_errors=True)
+    train = ["-m", "repro_torch.launch.train", "--smoke", "--steps",
+             str(TRAIN_CLI_STEPS), "--ckpt-every", "10", "--log-every", "10"]
     commands = {
-        "launch.train": ["-m", "repro_torch.launch.train", "--smoke",
-                         "--steps", str(TRAIN_CLI_STEPS), "--ckpt-every",
-                         "10", "--log-every", "10"],
+        "launch.train": train,
         "train_100m": ["-m", "repro_torch.examples.train_100m", "--steps",
                        str(TRAIN_CLI_STEPS)],
+        **{f"launch.train --arch {arch}": train + ["--arch", arch]
+           for arch in U_TRAIN_ARCHS},
     }
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = {}
@@ -3986,7 +4012,8 @@ def finish_train_cli(run: dict) -> dict:
                                  f"uninterrupted one ({done})")
         result[name] = {"final_loss": float(final_loss[0]),
                         "leaves": len(a["arrays"]), "bit_equal": True}
-        print(f"(p) {name}: crash at step {TRAIN_CLI_CRASH}, resumed, "
+        label = "(u3)" if "--arch" in name else "(p)"
+        print(f"{label} {name}: crash at step {TRAIN_CLI_CRASH}, resumed, "
               f"{TRAIN_CLI_STEPS} steps: final checkpoint ({len(a['arrays'])}"
               f" leaves) and loss {final_loss[0]} equal the uninterrupted "
               f"run's bit for bit")
@@ -4866,7 +4893,7 @@ def tp_lm_job(dev, job, rank) -> dict:
     else:
         cfg = moe_config(job.get("no_drops", False))
     model = build_model(cfg)
-    mesh = make_host_mesh(shape)
+    mesh = make_host_mesh(shape, tuple(job.get("axes", ("data", "model"))))
     run = serve_cluster.RUN
     engine = Engine(model, run, device=dev, mesh=mesh, seq_shard=seq)
     torch.cuda.synchronize()
@@ -5045,11 +5072,15 @@ def tp_worker(spec_path: str):
     out = {}
     run = {"clf": tp_clf_job, "lm": tp_lm_job, "zero_train": zero_train_job,
            "zero_serve": zero_serve_job, "t_family": t_family_job,
-           "t_slices": t_slices_job, "t_cli": t_cli_job}
+           "t_slices": t_slices_job, "t_cli": t_cli_job,
+           "u_http": u_http_job}
     for job in spec["jobs"]:
         t0 = time.perf_counter()
+        print(f"job {job['name']} starts", flush=True)
         out[job["name"]] = run[job["kind"]](dev, job, rank)
         out[job["name"]]["job_s"] = time.perf_counter() - t0
+        print(f"job {job['name']}: {out[job['name']]['job_s']:.1f} s",
+              flush=True)
     torch.save(out, Path(spec["out"], f"rank{rank}.pt"))
 
 
@@ -5260,7 +5291,8 @@ def check_lm_layout(dev, name, cfg, ranks, ref) -> dict:
     serving runs."""
     res = ranks[0]
     shape, seq = tuple(res["shape"]), res["seq"]
-    d, m = shape
+    # the data axes taken together, then "model" (the last axis)
+    d, m = int(np.prod(shape[:-1])), shape[-1]
     for other in ranks[1:]:
         for mode in ("greedy", "sampled"):
             if mode in res and other[mode]["streams"] != res[mode]["streams"]:
@@ -5289,7 +5321,7 @@ def check_lm_layout(dev, name, cfg, ranks, ref) -> dict:
         out["sampled_parted"] = len(out["sampled_partings"])
     kernel = "decode_attention_partials" if seq else "decode_attention"
     want = dict(NO_LAUNCHES, **{kernel: cfg.n_layers})
-    wcol = want_collectives(cfg, shape, seq)
+    wcol = want_collectives(cfg, (d, m), seq)
     for r, x in enumerate(ranks):
         if x["round_launches"] != want:
             raise AssertionError(f"{name} rank {r}: a round launched "
@@ -6289,6 +6321,7 @@ def t_check_family(name, family, ranks, ref) -> dict:
         raise AssertionError(f"(t) {name}: admission logits vs one rank, "
                              f"relative RMS {err}")
     engine, params = ref["judge"]
+    params = tree_map(lambda t: t.to(engine.device), params)
     reqs = t_requests(cfg, gen)
     if family in T_CHAOTIC:
         greedy = sum(a != b for a, b in zip(ref["greedy"]["streams"],
@@ -6560,6 +6593,12 @@ def t_jobs(dev) -> tuple:
     refs = {family: t_family_run(dev, family, sampled=family == "whisper")
             for family in ("whisper", "mamba", "jamba")}
     refs["slices"] = t_slices_reference(dev)
+    for family in ("whisper", "mamba", "jamba"):
+        # the judges' params wait on the host while the ranks run: the
+        # 4-rank spawn's ZeRO training peaks at 19 GB a rank, and the card
+        # had 0.4 GB left for the parent's 1 GB of judges (PERF.md §6)
+        engine, params = refs[family]["judge"]
+        refs[family]["judge"] = (engine, tree_map(lambda t: t.cpu(), params))
     gc.collect()
     torch.cuda.empty_cache()
     jobs = {2: [], 4: []}
@@ -6610,6 +6649,318 @@ def check_t(dev, ranks: dict, refs: dict, tie: float) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase (u): the front door on a multi-rank mesh, rows over two data axes,
+# the training CLI per family and the compile-only dry run
+# ---------------------------------------------------------------------------
+
+# (u1): qwen2-7b, all 28 layers, tamed q/k, through ``launch.serve.run_http``
+# on (r)'s four ranks as a (2, 2) "tp" mesh: rank 0 binds the port and ticks
+# every rank's router; U_HTTP's clients post prompts of 64-256 tokens for 16
+# new tokens each, greedy, then fused sampled; the greedy streams are held
+# to one rank's front door on the same params
+U_HTTP = dict(n_clients=6, prompt_len=(64, 257), new_tokens=16)
+U_HTTP_TIMEOUT_S = 120.0   # a pass takes about 10 s
+U_ROUTER = dict(prompt_len=256, max_new_tokens=16, n_slots=4,
+                max_replicas=2)
+# then ``launch.serve --http --mesh 2x2`` as a user types it, at the smoke
+# config ``main`` serves, for U_CLI_SERVE_S seconds with one client (the
+# port is added when it runs)
+U_CLI_SERVE_S = 3.0
+U_CLI_ARGV = ["--http", "--mesh", "2x2", "--serve-seconds",
+              str(U_CLI_SERVE_S), "--seed", str(SEED)]
+# (u2): qwen2-7b at R_M4_LAYERS of 28 layers, tamed, on a ("pod", "data",
+# "model") (2, 2, 1) mesh of the same ranks: r2's requests, their rows cut
+# over "pod" x "data", held to (r)'s one-rank reference at that depth
+U_ROWS = (2, 2, 1)
+U_AXES = ("pod", "data", "model")
+U_ROWS_NAME = f"u2 qwen{U_ROWS} pod x data"
+# (u4): the compile-only dry run, started before phase (q) (it needs only
+# the host's CPU): one rank of the production mesh traced on fake tensors
+U_DRYRUNS = {
+    "qwen2-7b train_4k (16, 16)": ["--arch", "qwen2-7b", "--shape",
+                                   "train_4k"],
+    "mamba2-130m train_4k (2, 16, 16)": ["--arch", "mamba2-130m",
+                                         "--shape", "train_4k",
+                                         "--multi-pod", "on"],
+}
+U_DRYRUN_TIMEOUT_S = 900
+
+
+def u_prompts(cfg) -> list:
+    return [r.prompt for r in serve_cluster.make_requests(
+        cfg.vocab_size, U_HTTP["n_clients"], U_HTTP["prompt_len"],
+        (U_HTTP["new_tokens"], U_HTTP["new_tokens"] + 1), SEED)]
+
+
+def u_front_door(engine, params, cfg, **kw) -> dict:
+    """U_HTTP's clients through ``launch.serve.run_http`` on ``engine``
+    (this rank's part of its mesh): the report, the streams (where this
+    rank ran the clients: rank 0), the launch counts, the admissions and
+    the decode rounds."""
+    prompts, n_new = u_prompts(cfg), U_HTTP["new_tokens"]
+
+    async def clients(port):
+        return await asyncio.wait_for(asyncio.gather(
+            *(http_generate(port, p, n_new) for p in prompts)),
+            U_HTTP_TIMEOUT_S)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = serve.run_http(cfg, engine=engine, params=params, seed=SEED,
+                         port=0, clients=clients, **U_ROUTER, **kw)
+    torch.cuda.synchronize()
+    router = out["router"]
+    res = {"report": out["report"], "port": out["port"],
+           "counts": read_counts(), "wall_s": time.perf_counter() - t0,
+           "admitted": int(router.obs.m_admitted.value()),
+           "decode_rounds": sum(r.batcher.decode_dispatches
+                                for r in router.pool.replicas)}
+    if out["clients"] is not None:
+        res["streams"] = []
+        for p, chunks in zip(prompts, out["clients"]):
+            toks, end = chunks[:-1], chunks[-1]
+            if (end.get("event") != "end" or not end["done"]
+                    or len(toks) != n_new):
+                raise AssertionError(f"(u1) client: {chunks[-2:]}")
+            res["streams"].append([c["token"] for c in toks])
+    return res
+
+
+def u_http_job(dev, job, rank) -> dict:
+    """(u1) on this rank: the (2, 2) "tp" engine, params drawn one rank at
+    a time (as r2's), the front door greedy then fused sampled."""
+    cfg = R_CONFIG("qwen2-7b")
+    model = build_model(cfg)
+    engine = Engine(model, serve_cluster.RUN, device=dev,
+                    mesh=make_host_mesh((2, 2)), strategy="tp")
+    for r in range(4):
+        if r == rank:
+            params = r_init(model, dev, engine.params_sharding)
+            torch.cuda.synchronize()
+        torch.distributed.barrier()
+    out = {"greedy": u_front_door(engine, params, cfg),
+           "sampled": u_front_door(engine, params, cfg, fused_sampling=True,
+                                   sampling=serve_cluster.SAMPLING)}
+    del params, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def u_jobs(dev) -> tuple:
+    """Phase (u)'s jobs for the 4-rank spawn and (u1)'s one-rank reference
+    (the front door on one rank, greedy), computed here first; (u2) is
+    held to (r)'s one-rank reference at R_M4_LAYERS."""
+    t0 = time.perf_counter()
+    cfg = R_CONFIG("qwen2-7b")
+    model = build_model(cfg)
+    engine = Engine(model, serve_cluster.RUN, device=dev)
+    ref = u_front_door(engine, r_init(model, dev), cfg)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    jobs = [dict(kind="u_http", name="u1 front door tp(2, 2)")]
+    print(f"(u) one-rank front door {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return jobs, ref
+
+
+def u_check_http(dev, ranks, ref, tie) -> dict:
+    """(u1) held: each pass's report equal on every rank and only rank 0
+    bound; every client served; on every rank the decode kernel once a
+    layer a round and (sampled) the sampling kernel, over the data ranks of
+    one model line the flash kernel once a layer an admission; the greedy
+    streams parted from one rank's front door only at near-ties
+    (``tie``: phase (r)'s bound on (2, 2))."""
+    cfg = R_CONFIG("qwen2-7b")
+    prompts = u_prompts(cfg)
+    out = {}
+    for mode in ("greedy", "sampled"):
+        res = [x[mode] for x in ranks]
+        first = res[0]
+        if any(x["report"] != first["report"] for x in res[1:]):
+            raise AssertionError(f"(u1) {mode}: ranks' reports differ")
+        if [x["port"] is None for x in res] != [False, True, True, True]:
+            raise AssertionError(f"(u1) {mode}: ports {[x['port'] for x in res]}")
+        rep = first["report"]
+        if rep["n_completed"] != len(prompts) or \
+                len(first["streams"]) != len(prompts):
+            raise AssertionError(f"(u1) {mode}: {rep}")
+        for r, x in enumerate(res):
+            c = x["counts"]
+            if c["decode_attention"] != cfg.n_layers * x["decode_rounds"] \
+                    or (mode == "sampled") != (c["fused_sample"] > 0):
+                raise AssertionError(f"(u1) {mode} rank {r}: launches {c}, "
+                                     f"{x['decode_rounds']} rounds")
+        flash = sum(res[r]["counts"]["flash_attention"] for r in (0, 2))
+        if flash != cfg.n_layers * first["admitted"]:
+            raise AssertionError(f"(u1) {mode}: flash {flash} over ranks 0 "
+                                 f"and 2, {first['admitted']} admissions")
+        out[mode] = {k: rep[k] for k in (
+            "ttft_p50_s", "ttft_p99_s", "tpot_p50_s", "wall_time_s",
+            "peak_replicas", "tokens_out", "tokens_per_s")}
+        out[mode].update(admitted=first["admitted"],
+                         decode_rounds=first["decode_rounds"],
+                         launches_per_rank=[x["counts"] for x in res])
+    out["greedy_parted"] = judge_greedy(dev, cfg, prompts, ref["streams"],
+                                        ranks[0]["greedy"]["streams"], tie)
+    if out["greedy_parted"] > T_GREEDY_PARTS * len(prompts) // 8:
+        raise AssertionError(f"(u1) {out['greedy_parted']} greedy streams "
+                             f"parted")
+    out["one_rank"] = {k: ref["report"][k] for k in (
+        "ttft_p50_s", "ttft_p99_s", "wall_time_s", "tokens_per_s")}
+    print(f"(u1) the front door on (2, 2) tp, qwen2-7b 28 layers, "
+          f"{len(prompts)} clients on {card_line()}: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def check_u(dev, ranks: dict, ref: dict, qref: dict, tie: float) -> dict:
+    """(u1) and (u2)'s checks; returns their launch counts by path, summed
+    over the ranks."""
+    u1 = ranks["u1 front door tp(2, 2)"]
+    u_check_http(dev, u1, ref, tie)
+    out = check_lm_layout(dev, U_ROWS_NAME, dataclasses.replace(
+        R_CONFIG("qwen2-7b"), n_layers=R_M4_LAYERS), ranks[U_ROWS_NAME],
+        qref)
+    rows = R_GEN["n_slots"] // int(np.prod(U_ROWS[:-1]))
+    if out["cache_block"][0] != rows:
+        raise AssertionError(f"(u2) cache block {out['cache_block']}: rows "
+                             f"not cut over pod x data")
+    return {"u_http_qwen2_7b": {k: sum(x[m]["counts"][k] for x in u1
+                                       for m in ("greedy", "sampled"))
+                                for k in NO_LAUNCHES},
+            "u_rows_qwen2_7b": {k: sum(x["greedy"]["counts"][k]
+                                       for x in ranks[U_ROWS_NAME])
+                                for k in NO_LAUNCHES}}
+
+
+def u_cli(dev) -> dict:
+    """(u1)'s command line as a user types it: ``launch.serve --http
+    --mesh 2x2`` (four ranks on the card) served U_CLI_SERVE_S seconds
+    from a thread while one client here posts to rank 0's port; every
+    rank's report the same, only rank 0 bound."""
+    port, box = free_port(), {}
+    argv = U_CLI_ARGV + ["--port", str(port)]
+    path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([path] if path else []))
+
+    def serve_http():
+        try:
+            box["out"] = serve.main(argv, rank_timeout=R_TIMEOUT_S)
+        except BaseException as e:  # noqa: BLE001 -- re-raised below
+            box["error"] = e
+
+    async def client():
+        deadline = time.monotonic() + R_TIMEOUT_S
+        while True:  # the ranks start, then rank 0 binds
+            try:
+                return await asyncio.wait_for(
+                    http_generate(port, list(range(1, 17)), 8), 60)
+            except OSError:
+                if time.monotonic() > deadline or not server.is_alive():
+                    raise
+                await asyncio.sleep(0.2)
+
+    t0 = time.perf_counter()
+    server = threading.Thread(target=serve_http)
+    server.start()
+    try:
+        chunks = asyncio.run(client())
+    finally:
+        server.join(R_TIMEOUT_S)
+        if path is None:
+            os.environ.pop("PYTHONPATH")
+        else:
+            os.environ["PYTHONPATH"] = path
+    if server.is_alive():
+        raise AssertionError("(u1) --http --mesh 2x2 still serving")
+    if "error" in box:
+        raise box["error"]
+    out = box["out"]
+    rep = out["report"]
+    if out["port"] != port or [r["port"] for r in out["ranks"]] != [
+            port, None, None, None] or any(
+            r["report"] != rep for r in out["ranks"]) or \
+            rep["n_completed"] != 1 or len(chunks) != 9:
+        raise AssertionError(f"(u1) --http --mesh 2x2: {out}")
+    res = {"wall_s": time.perf_counter() - t0, "ttft_p50_s":
+           rep["ttft_p50_s"], "tokens_out": rep["tokens_out"]}
+    print(f"(u1) launch.serve --http --mesh 2x2 --port {port} on "
+          f"{card_line()}: one client, every rank's report the same, only "
+          f"rank 0 bound; {json.dumps(res)}", flush=True)
+    return res
+
+
+def start_dryruns() -> dict:
+    """Start (u4)'s ``python -m repro_torch.launch.dryrun`` cells as a user
+    runs them, with the card in sight: CPU processes beside the phases."""
+    out = ROOT / "build" / "dryrun_torch"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out",
+         str(out)], cwd=str(ROOT), env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for name, argv in U_DRYRUNS.items()}
+    return {"out": out, "procs": procs, "t0": time.perf_counter()}
+
+
+def stop_processes(procs):
+    """Kill whichever of ``procs`` still runs (a failed phase's exit)."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def finish_dryruns(run: dict) -> dict:
+    """Wait for :func:`start_dryruns`' cells: each exits 0 and writes a
+    record with status "ok", the card never initialised in its process."""
+    procs, res = run["procs"], {}
+    try:
+        for name, p in procs.items():
+            left = max(U_DRYRUN_TIMEOUT_S - (time.perf_counter() - run["t0"]),
+                       1)
+            out, err = p.communicate(timeout=left)
+            if p.returncode:
+                raise AssertionError(f"(u4) dry run {name} exited "
+                                     f"{p.returncode}:\n{err[-3000:]}")
+            argv = U_DRYRUNS[name]
+            pod = "pod2" if "--multi-pod" in argv else "pod1"
+            rec = json.loads(Path(run["out"], f"{argv[1]}__{argv[3]}__"
+                                              f"{pod}.json").read_text())
+            if rec["status"] != "ok" or rec["cuda_initialized"]:
+                raise AssertionError(f"(u4) {name}: {rec.get('error')}, "
+                                     f"CUDA {rec['cuda_initialized']}")
+            r = rec["roofline"]
+            res[name] = {"trace_s": rec["trace_s"],
+                         "strategy": rec["strategy"],
+                         "flops_per_chip": rec["ops"]["flops_per_chip"],
+                         "model_flops_per_chip": r["model_flops_per_chip"],
+                         "flops_over_model": rec["ops"]["flops_per_chip"]
+                         / r["model_flops_per_chip"],
+                         "peak_live_bytes": rec["memory"]["peak_live_bytes"],
+                         "dominant": r["dominant"]}
+    finally:
+        stop_processes(procs.values())
+    res["wall_s"] = time.perf_counter() - run["t0"]
+    print(f"(u4) launch.dryrun on the card's host, the card untouched: "
+          f"{json.dumps(res)}", flush=True)
+    return res
+
+
+def run_u_tail(dev, dry: dict) -> dict:
+    """Phase (u)'s parts outside (r)'s spawns: (u1)'s command line and
+    (u4)'s dry runs."""
+    torch.cuda.empty_cache()
+    cli = u_cli(dev)
+    return {"cli": cli, "dryrun": finish_dryruns(dry)}
+
+
 def run_tp(dev) -> dict:
     """Phases (r) and (s) on one pair of rank spawns sharing the card
     (gloo): (r) tensor-parallel params and a data axis, (s) the ZeRO-3
@@ -6629,6 +6980,9 @@ def _run_tp(dev, tmp: Path) -> dict:
     t_t = time.perf_counter()
     tjobs, t_refs = t_jobs(dev)
     t_ref_s = time.perf_counter() - t_t
+    t_u = time.perf_counter()
+    ujobs, u_ref = u_jobs(dev)
+    u_ref_s = time.perf_counter() - t_u
     t0 = time.perf_counter()
     qcfg4 = dataclasses.replace(qcfg, n_layers=R_M4_LAYERS)
     refs = {"qwen": one_rank_lm(dev, qcfg, sampled=True),
@@ -6660,6 +7014,11 @@ def _run_tp(dev, tmp: Path) -> dict:
                for s, q in R_QWEN if s[0] * s[1] == 4]}
     for world, js in list(zero.items()) + list(tjobs.items()):
         jobs[world] += js
+    # (u2): an r2 job at R_M4_LAYERS layers on U_ROWS over U_AXES
+    ujobs.append(dict(kind="lm", arch="qwen2-7b", shape=U_ROWS, axes=U_AXES,
+                      layers=R_M4_LAYERS, name=U_ROWS_NAME,
+                      forced=forced_tokens(refs["qwen(1, 4)"]["greedy"])))
+    jobs[4] += ujobs
     ranks, walls = {}, {}
     print(f"(r) one-rank references {ref_s:.1f} s; the card holds "
           f"{torch.cuda.memory_reserved(dev) / 1e9:.3f} GB here before "
@@ -6675,8 +7034,10 @@ def _run_tp(dev, tmp: Path) -> dict:
             ranks[job["name"]] = [g[job["name"]] for g in got]
     zero_names = {j["name"] for js in zero.values() for j in js}
     t_names = {j["name"] for js in tjobs.values() for j in js}
+    u_names = {j["name"] for j in ujobs}
     zero_ranks = {k: ranks.pop(k) for k in list(ranks) if k in zero_names}
     t_ranks = {k: ranks.pop(k) for k in list(ranks) if k in t_names}
+    u_ranks = {k: ranks.pop(k) for k in list(ranks) if k in u_names}
     t_s = time.perf_counter()
     paths = check_zero(dev, zero_ranks, zero_refs)
     s_jobs = sum(rs[0]["job_s"] for rs in zero_ranks.values())
@@ -6717,6 +7078,15 @@ def _run_tp(dev, tmp: Path) -> dict:
           f"checks {time.perf_counter() - t_c:.1f} s; in all "
           f"{t_ref_s + t_jobs_s + t_train_s + time.perf_counter() - t_c:.1f}"
           f" s", flush=True)
+    t_c = time.perf_counter()
+    paths.update(check_u(dev, u_ranks, u_ref, refs["qwen(1, 4)"],
+                         summary["qwen(2, 2)"]["near_tie_bound"]))
+    u_jobs_s = sum(rs[0]["job_s"] for rs in u_ranks.values())
+    print(f"phase (u1)-(u2) the front door on (2, 2), rows over pod x data, "
+          f"on (r)'s spawns: reference {u_ref_s:.1f} s, jobs "
+          f"{u_jobs_s:.1f} s, checks {time.perf_counter() - t_c:.1f} s; in "
+          f"all {u_ref_s + u_jobs_s + time.perf_counter() - t_c:.1f} s",
+          flush=True)
     return paths
 
 
@@ -6793,11 +7163,19 @@ def main():
     phase("(p) training entry points, crash/resume, pod step",
           run_training_entry_points)
     torch.cuda.empty_cache()
+    # (u4): CPU processes beside (q)-(t), where one process (the parent)
+    # or a few ranks drive the card
+    dry = start_dryruns()
+    atexit.register(stop_processes, dry["procs"].values())
     paths.update(run_families(phase))
     torch.cuda.empty_cache()
-    paths.update(phase("(r)-(t) tensor-parallel and data-axis serving, "
-                       "ZeRO-3, SSM/encoder-decoder models under a mesh "
-                       "and mesh slices, ranks sharing the card", run_tp))
+    paths.update(phase("(r)-(u2) tensor-parallel and data-axis serving, "
+                       "ZeRO-3, SSM/encoder-decoder models under a mesh, "
+                       "mesh slices, the front door on a mesh and rows "
+                       "over two data axes, ranks sharing the card", run_tp))
+    torch.cuda.empty_cache()
+    phase("(u) --http --mesh 2x2 as a user runs it, the dry runs",
+          lambda d: run_u_tail(d, dry))
     # the path each kernel must have been launched on
     main_path = {"flash_attention": "generate_qwen2_7b",
                  "decode_attention": "generate_qwen2_7b",

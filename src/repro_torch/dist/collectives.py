@@ -12,7 +12,10 @@ batch cut over the data axes, the port calls them itself:
 (one data shard's result to all). Each counts its calls, and times them
 when :func:`set_timing` is on (``STATS``, read by the card's smoke run).
 Under gloo (ranks sharing a card, or the CPU) a CUDA tensor is staged
-through the host for these; NCCL takes it as it is.
+through the host for these; NCCL takes it as it is, and so does the
+compile-only dry run's "fake" backend (``launch.dryrun``: fake CPU
+tensors, no staging and no CUDA IPC), whose trace then shows the
+collectives of an NCCL layout of one rank per card.
 
 Under autograd (a train step) each carries its conjugate as its backward
 (Megatron's f and g): :func:`model_copy` (the identity, whose backward
@@ -420,9 +423,10 @@ def _card_line(group, t):
 
 def _reduce_scatter(g, group, index: int, n: int):
     """Row ``index`` of the SUM of ``g`` (n, L) over ``group``, summed in
-    fp32: NCCL's reduce_scatter; on a shared card, the peers' rows read in
-    place; on the CPU, gloo's all_reduce and the rank's row (gloo has no
-    reduce_scatter)."""
+    fp32: NCCL's reduce_scatter (also under the dry run's "fake" backend,
+    which traces what NCCL ranks run); on a shared card, the peers' rows
+    read in place; on the CPU, gloo's all_reduce and the rank's row (gloo
+    has no reduce_scatter)."""
     def run(t):
         t = t.contiguous()
         line = _card_line(group, t)
@@ -430,7 +434,7 @@ def _reduce_scatter(g, group, index: int, n: int):
             return sum(p[index].float() for p in line.exchange(t)
                        ).to(g.dtype)
         t = t.float()
-        if torch.distributed.get_backend(group) == "nccl":
+        if torch.distributed.get_backend(group) in ("nccl", "fake"):
             out = torch.empty_like(t[0])
             torch.distributed.reduce_scatter_tensor(out, t, group=group)
             return out.to(g.dtype)
@@ -454,7 +458,11 @@ def _gather_flat(flat, axes):
             return torch.stack(line.exchange(t))
         out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
                           device=t.device)
-        torch.distributed.all_gather(list(out.unbind(0)), t, group=group)
+        if torch.distributed.get_backend(group) == "gloo":
+            torch.distributed.all_gather(list(out.unbind(0)), t,
+                                         group=group)
+        else:  # one buffer: NCCL, and the dry run's "fake" backend
+            torch.distributed.all_gather_into_tensor(out, t, group=group)
         return out
     return _conjugate(
         flat, lambda t: _counted("all_gather_param", run, t),
@@ -485,9 +493,12 @@ def param_gather(tree, shardings):
                             axes)
         at = 0
         for path, t, dim in items:
+            # the n blocks concatenated along ``dim``, in block order
+            shape = list(t.shape)
             blocks = rows[:, at:at + t.numel()].reshape(
-                (rows.shape[0],) + tuple(t.shape)).unbind(0)
-            out[path] = torch.cat(blocks, dim=dim)
+                [rows.shape[0]] + shape).movedim(0, dim)
+            shape[dim] *= rows.shape[0]
+            out[path] = blocks.reshape(shape)
             at += t.numel()
     return tree_map_with_path(lambda p, _: out[p], tree)
 

@@ -383,28 +383,19 @@ def whole_over_data(shardings, batch_axes, mesh) -> dict:
 
 
 def check_layout(cfg, mesh, strategy: str, seq_shard: bool = False,
-                 plan=None, rows: bool = True):
-    """Raise where the port does not lay out ``cfg`` on ``mesh``:
+                 plan=None):
+    """Raise where the port does not lay out ``cfg`` on ``mesh``: a GQA
+    layout whose q-head blocks map onto no uniform group of whole kv
+    heads (``models.attention.kv_group``), the q heads cut over "model"
+    by ``plan`` (the planner's spec tree, default
+    :func:`param_specs_tree`) while the kv heads stay whole.
 
-      * ``rows`` cut over more than one data axis (ROADMAP Queue 1 #4.4,
-        make_production_mesh), for a caller that cuts the batch's rows
-        over the data axes (the engine; a train step takes them all);
-      * a GQA layout whose q-head blocks map onto no uniform group of
-        whole kv heads (``models.attention.kv_group``): the q heads cut
-        over "model" by ``plan`` (the planner's spec tree, default
-        :func:`param_specs_tree`) while the kv heads stay whole.
-
-    SSM and encoder-decoder layers are laid out under every strategy:
-    the SSM mixer runs whole on each "model" rank (its per-head leaves
-    gathered, ``models.ssm``), the encoder-decoder splits as the
-    decoder-only layers do (``models.encdec``)."""
+    Every other layout is served: rows over any number of data axes
+    (all of them or none, ``serving.Engine``), the SSM mixer whole on
+    each "model" rank (its per-head leaves gathered, ``models.ssm``), the
+    encoder-decoder split as the decoder-only layers are
+    (``models.encdec``)."""
     from repro_torch.models import attention as attn_lib
-    data = ctx.dp_axes(mesh)
-    if rows and sum(ctx.axis_size(a, mesh) > 1 for a in data) > 1:
-        raise NotImplementedError(
-            f"{dict(mesh.shape)}: rows cut over more than one data axis "
-            f"are not served yet (ROADMAP.md Queue 1 #4.4, "
-            f"make_production_mesh)")
     # "fsdp" gathers every leaf whole: "model" splits nothing there
     m = ctx.axis_size("model", mesh) if strategy != "fsdp" else 1
     if m <= 1 or seq_shard or not cfg.has_mixer("attn"):
@@ -458,6 +449,21 @@ def input_shardings(inputs, mesh):
         return sanitize_spec(spec, shape, mesh)
 
     return tree_map(one, inputs)
+
+
+def rows_all_or_none(spec, mesh) -> PartitionSpec:
+    """``spec`` with its first (batch) dim whole unless it is cut over
+    every data axis of the mesh (those of size > 1): the port cuts a
+    batch's rows over all the data axes or none (its row gathers and
+    admission broadcasts span them all), where :func:`sanitize_spec`
+    may keep a prefix of them (ROADMAP Queue 3, differences by
+    design)."""
+    if not len(spec) or spec[0] is None:
+        return spec
+    data = tuple(a for a in ctx.dp_axes(mesh) if ctx.axis_size(a, mesh) > 1)
+    if tuple(_entry_axes(spec[0])) == data:
+        return spec
+    return P(None, *spec[1:])
 
 
 def cache_shardings(cache, cfg, mesh, *, seq_shard: bool = False):

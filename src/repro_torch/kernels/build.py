@@ -76,3 +76,16 @@ def load(source: Path) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(source)))
         _LIBS[source] = lib
     return lib
+
+
+def refuse_fake(*xs) -> None:
+    """Raise where a fake tensor (``FakeTensorMode``) reaches a kernel
+    entry: the compile-only dry run (``launch.dryrun``) traces the plain
+    paths a rank would run, and a kernel has nothing to trace."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    if any(isinstance(x, FakeTensor) for x in xs):
+        raise RuntimeError(
+            "a fake tensor reached a hand-kernel entry: the compile-only "
+            "dry run (launch.dryrun) traces the plain paths, "
+            "attn_impl='xla' and seq_shard with "
+            "collectives.set_fused_partials(False)")

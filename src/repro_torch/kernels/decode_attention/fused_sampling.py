@@ -190,6 +190,7 @@ def fused_sample_kernel(logits, gumbel, cutoff, *, temperature: float,
     if n_split is not None and not 1 <= n_split <= CLUSTER_LIMIT:
         raise ValueError(f"n_split must lie in [1, {CLUSTER_LIMIT}], got "
                          f"{n_split}")
+    build.refuse_fake(logits, gumbel, cutoff)
     if all(x.device.type == "cpu" for x in (logits, gumbel, cutoff)):
         return fused_sample_ref(logits, gumbel, cutoff,
                                 temperature=temperature, top_k=top_k,

@@ -115,6 +115,7 @@ def _lengths(lengths, b: int, device):
 
 
 def _on_cpu(*xs) -> bool:
+    build.refuse_fake(*xs)
     return all(x.device.type == "cpu" for x in xs if x is not None)
 
 

@@ -93,6 +93,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise NotImplementedError(
             "flash_attention has no backward pass (nor has the reference's "
             "Pallas kernel): train with RunConfig(attn_impl='xla')")
+    build.refuse_fake(q, k, v)
     if all(x.device.type == "cpu" for x in (q, k, v)):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)

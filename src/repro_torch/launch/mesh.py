@@ -1,11 +1,14 @@
 """Rank meshes for one host: process groups, backends and spawned ranks.
 
-Counterpart of ``repro.launch.mesh`` (``make_host_mesh``, ``n_chips``;
-``make_production_mesh``, the 16x16 pod layout, waits with the multi-host
-work, ROADMAP Queue 1 #4.4, make_production_mesh). JAX sees every local
-device from one process; PyTorch runs one process per rank, so a mesh
-spans the ranks of the initialised default process group (or one rank with
-no group).
+Counterpart of ``repro.launch.mesh`` (``make_production_mesh``,
+``make_host_mesh``, ``n_chips``). JAX sees every local device from one
+process; PyTorch runs one process per rank, so a mesh spans the ranks of
+the initialised default process group (or one rank with no group).
+:func:`make_production_mesh` is the pod layout, (16, 16) over ("data",
+"model") or (2, 16, 16) over ("pod", "data", "model"): 256 or 512 ranks,
+one GPU each, launched across hosts by ``torchrun`` (NCCL, each rank on
+its local GPU as :func:`init_from_env` sets it). The compile-only dry run
+(``launch.dryrun``) plays one rank of it under the ``"fake"`` backend.
 
 Backends follow the layout: NCCL when every rank has a GPU of its own,
 gloo when ranks share a card or run on the CPU (NCCL refuses two ranks on
@@ -111,6 +114,24 @@ def init_from_env(device) -> torch.device:
             device = torch.device("cuda", rank)
             torch.cuda.set_device(device)
     return device
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The production mesh, (16, 16) over ("data", "model") or, with
+    ``multi_pod``, (2, 16, 16) over ("pod", "data", "model"), laid
+    row-major over the ranks of the default process group (rank r at
+    position r, as JAX's ``make_mesh`` lays its devices), with this rank's
+    process groups. Raises ``ValueError`` naming both counts when the
+    world holds another number of ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = int(np.prod(shape))
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != need:
+        raise ValueError(f"the production mesh {dict(zip(axes, shape))} "
+                         f"needs {need} ranks; the process group has "
+                         f"{world}")
+    return make_host_mesh(shape, axes)
 
 
 def make_host_mesh(shape=(2, 4), axes=("data", "model")) -> Mesh:

@@ -49,9 +49,11 @@ source rank's (``router.events``), so every rank takes the same
 decisions. ``--mesh DxM --mesh-slices n`` cuts the mesh into ``n``
 disjoint slices (``dist.sharding.slice_meshes``), one replica a slice
 (``router.pool.SlicePool``), the launcher checking the cut before it
-spawns; without ``--mesh`` the ``n`` slices are one-rank engines. Not in
-the port yet: ``--http`` on a multi-rank mesh (ROADMAP Queue 1 #4.7,
-the front door on rank 0 feeding every rank's router).
+spawns; without ``--mesh`` the ``n`` slices are one-rank engines.
+``--http --mesh DxM`` serves the front door from rank 0, which binds the
+port and prints it, and feeds every rank's router one broadcast tick a
+pass (``router.frontdoor.EventRouter``): every rank's report is the same
+(``--http`` takes no ``--mesh-slices``).
 
 Usage:
   python -m repro_torch.launch.serve --n-items 256 --batch-size 32 \
@@ -68,6 +70,8 @@ Usage:
   python -m repro_torch.launch.serve --mesh 2x2 --device cpu  # 4 ranks
   python -m repro_torch.launch.serve --router --mesh 2x2 --mesh-slices 2 \
       --device cpu    # 4 ranks, two replicas on (1, 2) slices
+  python -m repro_torch.launch.serve --http --mesh 2x2 --port 8765 \
+      --serve-seconds 60 --device cpu    # the front door on rank 0 of 4
 """
 from __future__ import annotations
 
@@ -109,7 +113,7 @@ from repro_torch.router import (TRAFFIC, CalibratedLatencyModel,
                                 fit_round_model, make_requests,
                                 measure_round_samples)
 from repro_torch.router.cloud import ON_DEMAND, spot_profile
-from repro_torch.router.events import VirtualClock
+from repro_torch.router.events import TickClock, VirtualClock
 from repro_torch.serving import Engine
 
 
@@ -388,15 +392,18 @@ def http_router(engine: Engine, params, *, seed: int = 0,
                 queue_cap: Optional[int] = None, cold_start: float = 0.5,
                 crash_prob: float = 0.0, straggler_prob: float = 0.0,
                 fused_sampling: bool = False,
+                sampling: Optional[dict] = None,
                 trace: bool = False) -> EventRouter:
     """The event-driven router the HTTP front door serves: queue-depth
-    autoscaling on the wall clock, measured round times, observability
-    on (with a ``TraceRecorder`` when ``trace``)."""
+    autoscaling on the wall clock (rank 0's, ticked to every rank, where
+    several ranks run it), measured round times, observability on (with a
+    ``TraceRecorder`` when ``trace``); ``sampling`` (temperature, top_k,
+    top_p) makes every replica sample instead of taking the argmax."""
     pool = ReplicaPool(
         engine, params,
         replica_config(n_slots=n_slots, prompt_len=prompt_len,
                        max_new_tokens=max_new_tokens,
-                       fused_sampling=fused_sampling),
+                       fused_sampling=fused_sampling, sampling=sampling),
         # wall-clock serving measures time; modeled round constants are
         # the virtual harness's business (EventRouter raises on both)
         lat=LatencyModel(cold_start_s=cold_start, per_item_s=None),
@@ -405,10 +412,16 @@ def http_router(engine: Engine, params, *, seed: int = 0,
     obs = Observability(tracer=TraceRecorder() if trace else None)
     return EventRouter(
         pool, QueueDepthPolicy(max_replicas=max_replicas),
-        clock=WallClock(),
+        clock=TickClock() if _world() > 1 else WallClock(),
         queue_cfg=QueueConfig(max_depth=queue_cap,
                               default_deadline_s=deadline),
         traffic_name="http", obs=obs)
+
+
+def _world() -> int:
+    """Ranks in the default process group (1 without one)."""
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def run_http(cfg: ModelConfig, *, engine: Optional[Engine] = None,
@@ -426,13 +439,23 @@ def run_http(cfg: ModelConfig, *, engine: Optional[Engine] = None,
     first raises its error. Then drains, prints the report and dumps the
     trace to ``trace``. Returns the port, the report's summary, the
     router and what ``clients`` returned. ``router_kw`` goes to
-    :func:`http_router`."""
+    :func:`http_router`.
+
+    Where several ranks run (a multi-rank mesh), every rank calls this
+    alike: rank 0 serves as above and ticks the others' routers, which
+    follow it (``EventRouter.follow``) and return no port, nothing from
+    ``clients`` (rank 0's alone run) and the same report."""
     if engine is None:
         engine, params = lm_engine(cfg, seed=seed, device=device,
                                    kv_dtype=kv_dtype, mesh=mesh,
                                    seq_shard=seq_shard)
     router = http_router(engine, params, seed=seed, trace=bool(trace),
                          **router_kw)
+    if _world() > 1 and torch.distributed.get_rank() != 0:
+        router.follow()
+        print(router.report().format_line())
+        return {"port": None, "report": router.report().summary(),
+                "router": router, "clients": None}
     door = HttpFrontDoor(router, host=host, port=port)
 
     async def _serve():
@@ -613,9 +636,11 @@ def check_layout(cfg: ModelConfig, shape: tuple, *, seq_shard: bool,
                             else "") + f": {e}")
 
 
-def spawn_mesh(argv: Sequence[str], ranks: int, timeout: float) -> dict:
+def spawn_mesh(argv: Sequence[str], ranks: int, timeout: float, *,
+               every_rank: bool = False) -> dict:
     """This command as ``ranks`` processes (``launch.mesh.spawn_ranks``):
-    relays rank 0's output and returns its result (``--result``)."""
+    relays rank 0's output and returns its result (``--result``); with
+    ``every_rank``, under ``"ranks"``, every rank's result too."""
     with tempfile.TemporaryDirectory() as tmp:
         result = os.path.join(tmp, "result.json")
         done = spawn_ranks(["-m", "repro_torch.launch.serve", *argv,
@@ -629,7 +654,16 @@ def spawn_mesh(argv: Sequence[str], ranks: int, timeout: float) -> dict:
                 raise SystemExit(f"rank {r} of {ranks} exited "
                                  f"{p.returncode}")
         with open(result) as f:
-            return json.load(f)
+            out = json.load(f)
+        if every_rank:
+            out["ranks"] = [out] + [_load(f"{result}.rank{r}")
+                                    for r in range(1, ranks)]
+        return out
+
+
+def _load(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
 
 
 def _jsonable(x):
@@ -759,6 +793,9 @@ def main(argv=None, *, rank_timeout: float = 3600.0):
                          "with python -m repro_torch.tools.trace_report")
     args = ap.parse_args(argv)
 
+    if args.http and args.mesh_slices:
+        raise SystemExit("--http takes no --mesh-slices: the front door "
+                         "serves one replica pool over the whole mesh")
     if args.batch_dag:
         return run_batch_dag(
             configs.smoke(args.router_arch), seed=args.seed,
@@ -775,17 +812,13 @@ def main(argv=None, *, rank_timeout: float = 3600.0):
     mesh = None
     if shape is not None:
         ranks = int(np.prod(shape))
-        if ranks > 1 and args.http:
-            raise SystemExit(
-                "--http on a multi-rank --mesh needs the front door on "
-                "rank 0 feeding every rank's router, not ported yet "
-                "(ROADMAP.md Queue 1 #4.7)")
         if ranks > 1 and rank_env()[1] == 1:  # the launcher: start ranks
             check_layout(cfg, shape, seq_shard=args.seq_shard,
                          kv_dtype=args.kv_dtype,
                          mesh_slices=args.mesh_slices)
             argv = list(argv if argv is not None else sys.argv[1:])
-            return spawn_mesh(argv, ranks, rank_timeout)
+            return spawn_mesh(argv, ranks, rank_timeout,
+                              every_rank=args.http)
         device = init_from_env(args.device)
         args.device = str(device)
         mesh = make_host_mesh(shape, ("data", "model"))
@@ -804,9 +837,11 @@ def main(argv=None, *, rank_timeout: float = 3600.0):
                       straggler_prob=args.straggler_prob,
                       fused_sampling=args.fused_sampling)
     if args.http:
-        return run_http(cfg, engine=engine, params=params, seed=args.seed,
-                        host=args.host, port=args.port, trace=args.trace,
-                        serve_seconds=args.serve_seconds, **common)
+        out = run_http(cfg, engine=engine, params=params, seed=args.seed,
+                       host=args.host, port=args.port, trace=args.trace,
+                       serve_seconds=args.serve_seconds, **common)
+        _result(args, {"port": out["port"], "report": out["report"]})
+        return out
     if online:
         cal = None
         cal_path = args.calibration or "calibration.json"
@@ -841,9 +876,12 @@ def main(argv=None, *, rank_timeout: float = 3600.0):
 
 
 def _result(args, result: dict) -> dict:
-    """``result``, written as JSON to ``--result`` by rank 0."""
-    if args.result and rank_env()[0] == 0:
-        with open(args.result, "w") as f:
+    """``result``, written as JSON to ``--result`` by rank 0 (rank r > 0
+    of several to ``--result`` + ``.rank{r}``)."""
+    if args.result:
+        rank = rank_env()[0]
+        with open(args.result + (f".rank{rank}" if rank else ""),
+                  "w") as f:
             json.dump(_jsonable(result), f)
     return result
 

@@ -4,9 +4,9 @@ Re-exports are lazy (PEP 562), as in the reference: importing
 ``repro_torch.models`` does not import the family modules.
 """
 _COMMON = ("AxSpec", "LayerSpec", "ModelConfig", "MoEConfig", "RunConfig",
-           "SSMConfig", "init_params", "param_bytes",
+           "SSMConfig", "abstract_params", "init_params", "param_bytes",
            "param_count")
-_ZOO = ("Model", "build")
+_ZOO = ("Model", "SkipCell", "build")
 
 __all__ = sorted(_COMMON + _ZOO)
 

@@ -5,8 +5,10 @@ Counterpart of ``repro.models.common``. Parameters are described by
 the same tree be
 
   * materialized (``init_params``) — on a device, from a
-    ``torch.Generator``; on the ``meta`` device it allocates nothing (the
-    counterpart of the reference's ``abstract_params``).
+    ``torch.Generator``; on the ``meta`` device it allocates nothing,
+  * made abstract (``abstract_params``, the reference's counterpart) —
+    empty tensors of this rank's local shapes, drawing no random numbers,
+    for the compile-only dry run to create under its ``FakeTensorMode``.
 
 Parameter trees are plain nested dicts and tuples of tensors.
 """
@@ -85,6 +87,21 @@ def init_params(spec_tree, generator: torch.Generator, device="cuda",
         if cut is None or cut.replicated:
             return t
         return cut.slice(t).clone()
+
+    return tree_map_with_path(one, spec_tree, is_axspec)
+
+
+def abstract_params(spec_tree, shardings=None):
+    """Empty CPU tensors of every leaf's shape and dtype, or with
+    ``shardings`` (as :func:`init_params` takes them) of this rank's
+    local shape: no random number is drawn. Made under a caller's
+    ``FakeTensorMode`` (``launch.dryrun``), they allocate nothing."""
+    cuts = dict(tree_leaves_with_path(shardings)) if shardings else {}
+
+    def one(path, s: AxSpec):
+        cut = cuts.get(path)
+        shape = s.shape if cut is None else cut.local_shape(s.shape)
+        return torch.empty(shape, dtype=s.dtype)
 
     return tree_map_with_path(one, spec_tree, is_axspec)
 
@@ -332,8 +349,34 @@ def sinusoidal_positions(n_pos: int, dim: int, device=None):
 # ---------------------------------------------------------------------------
 
 
+def cumsum(x, dim: int):
+    """``torch.cumsum(x, dim)``, but on a CUDA tensor of floats under
+    ``torch.use_deterministic_algorithms`` (where ``torch.cumsum`` raises:
+    its CUDA kernel adds in a varying order) :func:`triangle_cumsum`,
+    which cuBLAS adds in a fixed one; a training run that must resume
+    bit for bit (``launch.train``) runs there."""
+    if (x.is_cuda and x.is_floating_point()
+            and torch.are_deterministic_algorithms_enabled()):
+        return triangle_cumsum(x, dim)
+    return torch.cumsum(x, dim)
+
+
+def triangle_cumsum(x, dim: int):
+    """The running sums of ``x`` along ``dim`` as one product with an
+    upper triangle of ones (equal to ``torch.cumsum`` up to rounding)."""
+    n = x.shape[dim]
+    tri = torch.triu(torch.ones((n, n), dtype=x.dtype, device=x.device))
+    return (x.movedim(dim, -1) @ tri).movedim(-1, dim)
+
+
 def cross_entropy(logits, labels, ignore_id: int = -100):
-    """Mean CE over non-ignored tokens; logits (..., V) fp32-accumulated."""
+    """Mean CE over non-ignored tokens; logits (..., V) fp32-accumulated.
+    Labels of another rank than the logits' leading dims raise
+    ``ValueError``, as the reference's ``take_along_axis`` does (a
+    classifier fed next-token labels, say)."""
+    if labels.dim() != logits.dim() - 1:
+        raise ValueError(f"labels {tuple(labels.shape)} do not index logits "
+                         f"{tuple(logits.shape)}: need one label a row")
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.long().clamp_min(0)[..., None]

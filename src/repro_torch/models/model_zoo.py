@@ -1,21 +1,53 @@
-"""Config -> Model dispatch.
+"""Config -> Model dispatch + per-(arch x shape) input specs.
 
 Counterpart of ``repro.models.model_zoo``: ``build(cfg)`` returns a
 ``Model`` facade whose methods close over the family's implementation
 (decoder LM or encoder classifier in ``transformer``, encoder-decoder in
-``encdec``). The reference's dry-run input specs (``input_specs``,
-``SHAPES``) wait for the compile-only analysis (ROADMAP Queue 1 #6).
+``encdec``). ``input_specs`` gives meta tensors (shapes and dtypes) for
+every model input of a named shape cell of ``SHAPES``, and ``abstract``
+this rank's params as empty tensors: the compile-only dry run
+(``launch.dryrun``) traces against them under a ``FakeTensorMode``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.models import encdec, transformer
-from repro_torch.models.common import (ModelConfig, RunConfig, init_params,
+from repro_torch.models.common import (ModelConfig, RunConfig,
+                                       abstract_params, init_params,
                                        param_count)
+
+# shape-cell registry: name -> (seq_len, global_batch, kind)
+SHAPES: Dict[str, Tuple[int, int, str]] = {
+    "train_4k": (4_096, 256, "train"),
+    "prefill_32k": (32_768, 32, "prefill"),
+    "decode_32k": (32_768, 128, "decode"),
+    "long_500k": (524_288, 1, "decode"),
+}
+
+I32 = torch.int32
+BF16 = torch.bfloat16
+
+
+def shape_applicable(cfg: ModelConfig, shape: str) -> Tuple[bool, str]:
+    """(runnable, reason-if-skip) for an (arch x shape) cell."""
+    if shape == "long_500k" and not cfg.subquadratic:
+        return False, ("full quadratic attention at 500k context is "
+                       "architecturally infeasible (see DESIGN.md)")
+    if cfg.bidirectional and shape in ("decode_32k", "long_500k"):
+        return False, "encoder-only model has no decode step"
+    return True, ""
+
+
+class SkipCell(Exception):
+    """Raised when an (arch x shape) cell is architecturally inapplicable."""
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +63,12 @@ class Model:
         ``shardings`` (``Engine.params_sharding``) keeps this rank's
         slice of each leaf as it is drawn."""
         return init_params(self.param_specs, generator, device, shardings)
+
+    def abstract(self, shardings=None):
+        """Empty CPU tensors of the params (``shardings``: this rank's
+        local leaves), drawing no random numbers; made under the caller's
+        ``FakeTensorMode`` they allocate nothing (``launch.dryrun``)."""
+        return abstract_params(self.param_specs, shardings)
 
     @property
     def n_params(self) -> int:
@@ -130,6 +168,44 @@ class Model:
         return transformer.extend_paged(self.cfg, run, params, cache, row,
                                         tokens)
 
+    # -- dry-run inputs ---------------------------------------------------
+    def input_specs(self, shape: str, run: RunConfig = RunConfig()):
+        """(kind, batch inputs, cache or None) for the shape cell, the
+        whole batch's, as meta tensors with the reference's names, shapes
+        and dtypes; decode's cache holds ``seq + run.cache_pad``
+        positions. Raises :class:`SkipCell` for an inapplicable cell."""
+        cfg = self.cfg
+        seq, gb, kind = SHAPES[shape]
+        ok, why = shape_applicable(cfg, shape)
+        if not ok:
+            raise SkipCell(why)
+        frames = {"enc_embeds": _spec((gb, seq, cfg.enc_d_model
+                                       or cfg.d_model), BF16)}
+        if kind == "train":
+            if cfg.encdec:
+                inputs = dict(frames, tokens=_spec((gb, seq), I32),
+                              labels=_spec((gb, seq), I32))
+            elif cfg.input_mode == "embeddings":
+                inputs = {"embeddings": _spec((gb, seq, cfg.d_model), BF16),
+                          "labels": _spec((gb, seq), I32)}
+            elif cfg.bidirectional:
+                inputs = {"tokens": _spec((gb, seq), I32),
+                          "labels": _spec((gb,), I32)}
+            else:
+                inputs = {"tokens": _spec((gb, seq), I32),
+                          "labels": _spec((gb, seq), I32)}
+            return kind, inputs, None
+        if kind == "prefill":
+            if cfg.encdec:
+                inputs = dict(frames, tokens=_spec((gb, seq), I32))
+            elif cfg.input_mode == "embeddings":
+                inputs = {"embeddings": _spec((gb, seq, cfg.d_model), BF16)}
+            else:
+                inputs = {"tokens": _spec((gb, seq), I32)}
+            return kind, inputs, None
+        # decode: one new token against a cache of length `seq`
+        cache = self.cache_specs(gb, seq + run.cache_pad, enc_len=seq)
+        return kind, {"token": _spec((gb, 1), I32)}, cache
 
     def _check_decoder_only(self):
         if self.cfg.encdec:

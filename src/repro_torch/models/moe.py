@@ -121,8 +121,10 @@ def _positions_in_expert(mc: MoEConfig, gate_idx, c: int):
     counts = torch.zeros(e, dtype=torch.float32, device=gate_idx.device)
     pos_all, keep_all = [], []
     for j in range(mc.top_k):
-        oh = F.one_hot(gate_idx[:, j], e).float()
-        pos_e = (torch.cumsum(oh, 0) - 1.0) + counts[None]
+        hot = F.one_hot(gate_idx[:, j], e)
+        oh = hot.float()
+        # counted in integers: exact, and deterministic on CUDA
+        pos_e = (torch.cumsum(hot, 0) - 1).float() + counts[None]
         pos_j = (pos_e * oh).sum(-1)  # (T,)
         keep_all.append(pos_j < c)
         pos_all.append(pos_j.long())
@@ -161,8 +163,9 @@ def _apply_einsum(cfg, mc, p, xt, gate_vals, gate_idx):
     dispatch = torch.zeros((t, e, c), dtype=xt.dtype, device=xt.device)
     combine = torch.zeros((t, e, c), dtype=torch.float32, device=xt.device)
     for j in range(k):
-        oh = F.one_hot(gate_idx[:, j], e).float()
-        pos = (torch.cumsum(oh, 0) - 1.0) + counts[None]
+        hot = F.one_hot(gate_idx[:, j], e)
+        oh = hot.float()
+        pos = (torch.cumsum(hot, 0) - 1).float() + counts[None]
         keep = oh * (pos < c)
         slot = F.one_hot(pos.clamp(0, c - 1).long(), c).float() \
             * keep[..., None]

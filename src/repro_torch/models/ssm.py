@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist import collectives
-from repro_torch.models.common import AxSpec, ModelConfig, SSMConfig, rms_norm
+from repro_torch.models.common import (AxSpec, ModelConfig, SSMConfig, cumsum,
+                                       rms_norm)
 
 _HEAD_LEAVES = ("wdt", "A_log", "dt_bias", "D")
 
@@ -171,7 +172,7 @@ def ssm_forward(cfg: ModelConfig, sc: SSMConfig, p, u, *,
     ch = ch.reshape(b, nc, q, h, n)
     dtc = dtp.reshape(b, nc, q, h)
 
-    cum = torch.cumsum(dtc * a, dim=2)  # (B,Nc,Q,H)
+    cum = cumsum(dtc * a, dim=2)  # (B,Nc,Q,H)
     cum_t = cum.permute(0, 3, 1, 2)     # (B,H,Nc,Q)
 
     # intra-chunk (quadratic within a chunk); the decay exponent is masked

@@ -59,6 +59,10 @@ clock reads a host clock: after each round the replica's source rank
 shared mesh) broadcasts the round's seconds, each token's offset into
 it and the tokens over the world group (:func:`_from_source`), which
 makes every rank wait for that round: the slices then take turns.
+Behind the HTTP front door rank 0 alone takes requests: it broadcasts one
+tick a pass (the new submissions, the cancellations, the stop flag and
+its clock reading, :class:`TickClock`) and every rank applies it before
+the same control step and rounds (``frontdoor.EventRouter``).
 """
 from __future__ import annotations
 
@@ -119,6 +123,30 @@ class WallClock:
 
     def advance_to(self, t: float) -> None:
         pass                      # wall time advances itself
+
+
+class TickClock:
+    """The wall clock of a router that several ranks run in step (the
+    HTTP front door on a multi-rank mesh): rank 0 reads its own
+    :class:`WallClock` (``wall``) once a pass and broadcasts the reading
+    with the pass's tick (``frontdoor.EventRouter``); every rank, rank 0
+    included, then runs the pass at that time (:meth:`tick`), so their
+    decisions agree. Rank 0 stamps arrivals on ``wall``."""
+
+    virtual = False
+
+    def __init__(self):
+        self.wall = WallClock()
+        self._t = 0.0
+
+    def now(self) -> float:
+        return self._t
+
+    def advance_to(self, t: float) -> None:
+        pass                      # moved by the ticks only
+
+    def tick(self, t: float) -> None:
+        self._t = max(self._t, t)
 
 
 class EventQueue:

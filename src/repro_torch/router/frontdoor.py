@@ -40,6 +40,20 @@ streaming NDJSON token events over chunked transfer encoding.
   * ``GET /metrics.json`` — the legacy JSON counter blob, now served
     O(1) from live state + registry histograms (``live_stats``).
 
+Several ranks (a multi-rank mesh under every replica): rank 0 alone
+binds the socket and runs ``serve()``; each pass of its loop broadcasts
+ONE tick over the world group — the new submissions (prompt ids,
+``max_new_tokens``, priority, deadline, arrival time), the cancellations
+by request id, the stop flag and rank 0's clock reading
+(``events.TickClock``) — and applies it. Every other rank runs
+``follow()``, a synchronous loop that applies the same ticks: the same
+admissions, control step and replica rounds at the same clock, so the
+ranks' collectives meet and their reports agree. Round seconds and
+tokens come from rank 0 (``events._from_source``); streams are written
+on rank 0 only. While idle rank 0 still ticks every
+``RouterConfig.idle_step_s``, so no rank waits longer than that on a
+broadcast; a stop drains every rank.
+
 A mid-flight client disconnect cancels its request —
 ``EventRouter.cancel`` frees the slot's cache row via
 ``ContinuousBatcher.cancel`` between rounds, so the round (and every
@@ -57,11 +71,12 @@ from collections import deque
 from typing import Any, Awaitable, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.cost_model import AWSPriceBook, TPUPriceBook
 from repro_torch.obs import Observability
 from repro_torch.router.events import (ARRIVAL, EventQueue, RouterConfig,
-                                       RouterCore, VirtualClock)
+                                       RouterCore, TickClock, VirtualClock)
 from repro_torch.router.metrics import RouterReport
 from repro_torch.router.policy import AutoscalePolicy
 from repro_torch.router.pool import ReplicaPool
@@ -91,6 +106,11 @@ class EventRouter(RouterCore):
         self._stopping = False
         self._n_exp_seen = 0
         self._n_rej_seen = 0
+        # several ranks in step (a TickClock): cancellations wait for the
+        # next tick; every rank finds a request by its id
+        self._ticked = isinstance(self._clock, TickClock)
+        self._cancels: list = []
+        self._by_rid: Dict[int, Request] = {}
 
     # -- virtual trace mode (the parity/bench harness) -------------------
 
@@ -138,25 +158,39 @@ class EventRouter(RouterCore):
         req = Request(rid=self._rid_seq,
                       prompt=np.asarray(prompt, np.int32),
                       max_new_tokens=int(max_new_tokens),
-                      arrival_t=self.clock, deadline_s=deadline_s,
-                      priority=int(priority))
+                      arrival_t=(self._clock.wall.now() if self._ticked
+                                 else self.clock),
+                      deadline_s=deadline_s, priority=int(priority))
         self._rid_seq += 1
         stream: asyncio.Queue = asyncio.Queue()
         self._streams[id(req)] = stream
         self._intake.append(req)
-        # fold live requests into the avg-token estimator the trace
-        # modes precompute from the full trace
-        self._req_tok_sum += (req.max_new_tokens
-                              + len(req.prompt) * self._prefill_factor)
-        self._req_count += 1
+        if not self._ticked:  # ticked: counted where every rank admits it
+            self._count_live(req)
         if self._wake is not None:
             self._wake.set()
         return req, stream
 
+    def _count_live(self, req: Request) -> None:
+        """Fold a live request into the avg-token estimator the trace
+        modes precompute from the full trace."""
+        self._req_tok_sum += (req.max_new_tokens
+                              + len(req.prompt) * self._prefill_factor)
+        self._req_count += 1
+
     def cancel(self, req: Request) -> bool:
         """Client went away: remove ``req`` wherever it is — intake,
         arrival queue, or a replica slot (freeing its cache row without
-        touching the round). Returns True when found."""
+        touching the round). Returns True when found. Several ranks in
+        step: the cancellation rides the next tick (True)."""
+        if self._ticked:
+            self._cancels.append(req.rid)
+            if self._wake is not None:
+                self._wake.set()
+            return True
+        return self._cancel_now(req)
+
+    def _cancel_now(self, req: Request) -> bool:
         n_before = len(self._intake)
         self._intake = deque(q for q in self._intake if q is not req)
         found = len(self._intake) != n_before
@@ -194,6 +228,8 @@ class EventRouter(RouterCore):
                 "EventRouter with clock=WallClock() (run_events() "
                 "drives virtual-clock traces)")
         self._wake = asyncio.Event()
+        if self._ticked:
+            return await self._serve_ticks()
         try:
             while True:
                 while self._intake:
@@ -223,6 +259,84 @@ class EventRouter(RouterCore):
             self._close_terminal_streams()
             for req_id in list(self._streams):
                 self._streams.pop(req_id).put_nowait(None)
+
+    # -- several ranks in step -------------------------------------------
+
+    async def _serve_ticks(self) -> None:
+        """Rank 0's loop on several ranks: each pass broadcasts one tick
+        (:meth:`_tick`) and applies it; idle, it waits for a submission,
+        a cold start or ``idle_step_s``, whichever comes first."""
+        try:
+            while True:
+                intake = list(self._intake)
+                self._intake.clear()
+                tick = {"t": self._clock.wall.now(),
+                        "subs": [(q.rid, q.prompt.tolist(), q.max_new_tokens,
+                                  q.priority, q.deadline_s, q.arrival_t)
+                                 for q in intake],
+                        "cancels": self._cancels, "stop": self._stopping}
+                self._cancels = []
+                busy, done = self._tick(_broadcast(tick), intake)
+                if done:
+                    break
+                if busy:
+                    await asyncio.sleep(0)  # flush this round's tokens
+                    continue
+                waits = [max(r.ready_t - self.clock, 0.0)
+                         for r in self.pool.live()
+                         if r.state == "starting"]
+                timeout = min(min(waits) + 1e-3 if waits
+                              else self.cfg.idle_step_s,
+                              self.cfg.idle_step_s)
+                try:
+                    await asyncio.wait_for(self._wake.wait(), timeout)
+                except asyncio.TimeoutError:
+                    pass
+                self._wake.clear()
+        finally:
+            self.pool.retire_all(self.clock)
+            self._close_terminal_streams()
+            for req_id in list(self._streams):
+                self._streams.pop(req_id).put_nowait(None)
+
+    def follow(self) -> None:
+        """Every rank but 0 on several ranks: apply rank 0's ticks until
+        the one that stops a drained router."""
+        if not self._ticked:
+            raise RuntimeError("follow() runs beside a multi-rank serve(): "
+                               "construct the EventRouter with "
+                               "clock=TickClock()")
+        try:
+            while True:
+                if self._tick(_broadcast(None))[1]:
+                    break
+        finally:
+            self.pool.retire_all(self.clock)
+
+    def _tick(self, tick: dict, intake=None) -> Tuple[bool, bool]:
+        """One pass at the tick's time: its submissions (rank 0's own
+        requests, ``intake``, or made here from the tick) and
+        cancellations, then control and the replica rounds. Returns
+        (rounds ran, the router stopped and drained)."""
+        self._clock.tick(tick["t"])
+        if intake is None:
+            intake = [Request(rid=rid, prompt=np.asarray(prompt, np.int32),
+                              max_new_tokens=n, arrival_t=t,
+                              deadline_s=deadline, priority=priority)
+                      for rid, prompt, n, priority, deadline, t
+                      in tick["subs"]]
+        for req in intake:
+            self._by_rid[req.rid] = req
+            self._count_live(req)
+            self._admit_arrival(req)
+        for rid in tick["cancels"]:
+            self._cancel_now(self._by_rid[rid])
+        self._control()
+        self._close_terminal_streams()
+        if self._step_all():
+            self.pool.retire_drained(self.clock)
+            return True, False
+        return False, tick["stop"] and self._drained()
 
     def report(self) -> RouterReport:
         """Accounting so far (wall mode: call after ``serve`` returns
@@ -298,6 +412,13 @@ class EventRouter(RouterCore):
         for q in self.queue.rejected[self._n_rej_seen:]:
             self._close_stream(q)
         self._n_rej_seen = len(self.queue.rejected)
+
+
+def _broadcast(tick: Optional[dict]) -> dict:
+    """Rank 0's ``tick`` on every rank of the world group."""
+    box = [tick]
+    torch.distributed.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 class HttpFrontDoor:

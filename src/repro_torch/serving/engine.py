@@ -52,8 +52,10 @@ Every family serves under these layouts: an SSM mixer runs whole on
 each "model" rank (``models.ssm``), an encoder-decoder model splits its
 encoder, decoder and cross-attention heads over "model" and cuts its
 rows, frame embeddings and ``EncDecCache`` over the data axes (an
-admission encodes its frames once, on the row's owners). Rows cut over
-more than one data axis still raise (ROADMAP Queue 1 #4.4). The
+admission encodes its frames once, on the row's owners). Rows are cut
+over every data axis taken together ("pod" and "data" of the production
+mesh) or over none, where the batch's rows are not a multiple of their
+ranks (``dist.sharding.rows_all_or_none``). The
 reference's guards hold too: int8 KV raises under a mesh and paged
 caches raise (the batcher keeps the dense cache).
 
@@ -152,9 +154,9 @@ def _check_prompt(s: int, max_len: int):
 def _check_mesh(model: Model, mesh, seq_shard: bool, strategy: str,
                 specs) -> None:
     """The layouts the port serves: a "model" axis under "tp",
-    "fsdp_tp" or with ``seq_shard``, one data axis, and params cut over
-    the data axes ("fsdp", "fsdp_tp"), for every family; the rest raise
-    (``dist.sharding.check_layout``)."""
+    "fsdp_tp" or with ``seq_shard``, rows over the data axes, and params
+    cut over the data axes ("fsdp", "fsdp_tp"), for every family; the
+    rest raise (``dist.sharding.check_layout``)."""
     if strategy not in ("tp", "fsdp", "fsdp_tp"):
         raise ValueError(f"unknown strategy {strategy!r}")
     shd.check_layout(model.cfg, mesh, strategy, seq_shard, plan=specs)
@@ -321,41 +323,47 @@ class Engine:
             x = x.to(self.device)
             if self.mesh is None:
                 return x
-            return shd.rank_sharding(shd.input_shardings(x, self.mesh),
-                                     self.mesh).slice(x)
+            return shd.rank_sharding(self._row_spec(x), self.mesh).slice(x)
         return tree_map(one, batch)
 
     def cache_sharding(self, cache):
         """The planned spec tree of ``cache`` (``dist.sharding.
-        cache_shardings``, with the kv heads whole over "model" under
-        "fsdp" as :meth:`new_cache` lays them out); None without a mesh."""
+        cache_shardings``, as :meth:`new_cache` lays it out: rows over
+        every data axis or none, and the kv heads whole over "model"
+        under "fsdp"); None without a mesh."""
         if self.mesh is None:
             return None
         plan = shd.cache_shardings(cache, self.model.cfg, self.mesh,
                                    seq_shard=self.seq_shard)
-        if self.strategy != "fsdp" or self.seq_shard:
-            return plan
+        keep_heads = self.strategy != "fsdp" or self.seq_shard
 
         def whole(spec):
-            return shd.drop_axis(spec, "model") if len(spec) >= 4 else spec
+            spec = shd.rows_all_or_none(spec, self.mesh)
+            if keep_heads or len(spec) < 4:
+                return spec
+            return shd.drop_axis(spec, "model")
         if isinstance(plan, Cache):
             return dataclasses.replace(plan, layers=tuple(
                 {name: whole(spec) for name, spec in layer.items()}
-                for layer in plan.layers))
+                for layer in plan.layers), lengths=whole(plan.lengths))
         return {name: tree_map(whole, specs, is_leaf=_is_spec)
                 for name, specs in plan.items()}
 
     # -- the batch's rows over the data axes ---------------------------
 
+    def _row_spec(self, x):
+        """``dist.sharding.input_shardings``'s spec of batch ``x``, its
+        rows cut over every data axis or none."""
+        return shd.rows_all_or_none(shd.input_shardings(x, self.mesh),
+                                    self.mesh)
+
     def _rows(self, x) -> Tuple[int, int]:
-        """(blocks, this rank's block) of batch ``x``'s rows as
-        ``dist.sharding.input_shardings`` cuts dim 0: D equal blocks over
-        the data axes where D divides the rows, else (1, 0), every rank
-        computing every row."""
+        """(blocks, this rank's block) of batch ``x``'s rows: D equal
+        blocks over the data axes taken together where D divides the
+        rows, else (1, 0), every rank computing every row."""
         if self.mesh is None:
             return 1, 0
-        cut = shd.rank_sharding(shd.input_shardings(x, self.mesh),
-                                self.mesh).cuts[0]
+        cut = shd.rank_sharding(self._row_spec(x), self.mesh).cuts[0]
         return (1, 0) if cut is None else (cut[2], cut[1])
 
     @staticmethod
@@ -446,8 +454,8 @@ class Engine:
     def _prefill_fn(self, max_len: int):
         shards, shard = self._seq_block(max_len)
 
-        def _prefill(params, batch):
-            n, i = self._rows(batch["tokens"])
+        def _prefill(params, batch):  # tokens or embeddings (the dry run)
+            n, i = self._rows(next(iter(batch.values())))
             with dctx.row_shard(n, i):
                 logits, cache = self.model.prefill(
                     self.run, params,

@@ -179,7 +179,7 @@ def make_train_step(model: Model, run: RunConfig, optimizer,
         return _make_step(model, run, optimizer, mesh)
     if strategy not in ("tp", "fsdp", "fsdp_tp"):
         raise ValueError(f"unknown strategy {strategy!r}")
-    shd.check_layout(model.cfg, mesh, strategy, rows=False)
+    shd.check_layout(model.cfg, mesh, strategy)
     shardings = shd.param_shardings(model.param_specs, strategy, mesh)
     axes = (dctx.fsdp_batch_axes(mesh) if strategy == "fsdp"
             else tuple(a for a in mesh.axis_names if a != "model"))

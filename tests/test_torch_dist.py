@@ -83,10 +83,13 @@ def test_mesh_context_and_constrain():
 
 
 def test_unported_layouts_name_their_roadmap_item(qwen):
-    """Layouts the port still refuses, each naming its ROADMAP item: a
+    """The layout the port still refuses, naming its ROADMAP entry: a
     GQA layout whose q-head blocks map onto no uniform kv group (6 q
-    heads over 2 kv heads on 3 ranks: 2 a rank, groups of 3), and rows
-    cut over two data axes. An SSM model under "model" and an
+    heads over 2 kv heads on 3 ranks: 2 a rank, groups of 3). Rows cut
+    over two data axes, once refused here, are served: over ("pod",
+    "data") taken together where their 4 ranks divide the rows, whole
+    where only a prefix of the axes would (the port's all-or-none rule),
+    in the cache as in the inputs. An SSM model under "model" and an
     encoder-decoder model on several ranks, once refused here, are now
     laid out: mamba2's per-head leaves cut by "heads" and its
     "ssm_inner" leaves whole, as the reference's planner leaves them;
@@ -103,8 +106,13 @@ def test_unported_layouts_name_their_roadmap_item(qwen):
                        match=r"Queue 3, differences by design"):
         Engine(build(gqa), RunConfig(), device="cpu", mesh=mesh((1, 3)))
     grid = dctx.Mesh(np.arange(4).reshape(2, 2, 1), ("pod", "data", "model"))
-    with pytest.raises(NotImplementedError, match=r"Queue 1 #4\.4"):
-        Engine(build(qwen["cfg"]), RunConfig(), device="cpu", mesh=grid)
+    eng = Engine(build(qwen["cfg"]), RunConfig(), device="cpu", mesh=grid)
+    for rows, local in ((4, 1), (8, 2), (2, 2)):
+        assert eng.shard_inputs({"tokens": np.zeros((rows, 8), np.int32)}
+                                )["tokens"].shape == (local, 8)
+        cache = eng.new_cache(rows, 16)
+        assert cache.row_shards == rows // local
+        assert cache.lengths.shape == (local,)
 
     cfg = configs.smoke("mamba2-130m")
     eng = Engine(build(cfg), RunConfig(), device="cpu", mesh=mesh((1, 2)))

@@ -531,15 +531,17 @@ def test_serve_one_rank_seq_shard_mesh_runs():
 @pytest.mark.parametrize("argv,match", [
     (["--router", "--mesh", "1x2", "--router-arch", "mamba2-130m",
       "--horizon", "1"], None),
-    (["--http", "--mesh", "2x1"], "Queue 1 #4.7"),
+    (["--http", "--mesh", "2x1", "--port", "0", "--serve-seconds", "1"],
+     None),
+    (["--http", "--mesh", "2x1", "--mesh-slices", "2"], "--mesh-slices"),
     (["--router", "--mesh-slices", "2", "--horizon", "1"], None),
     (["--calibrate", "--mesh", "1x2"], None),
 ])
 def test_serve_modes_not_ported_raise(argv, match, tmp_path):
-    """Only ``--http`` on a multi-rank mesh still exits, naming its
-    ROADMAP item; mamba2 under "model", ``--mesh-slices`` and
-    ``--calibrate`` on a mesh now run to completion (the name is kept
-    from when they exited)."""
+    """Every mode now runs: mamba2 under "model", ``--mesh-slices``,
+    ``--calibrate`` and ``--http`` on a multi-rank mesh run to completion
+    (the name is kept from when they exited); ``--http`` takes no
+    ``--mesh-slices`` and exits naming it."""
     if "--calibrate" in argv:
         argv = argv + ["--calibration", str(tmp_path / "calibration.json")]
     if match is not None:
@@ -550,6 +552,10 @@ def test_serve_modes_not_ported_raise(argv, match, tmp_path):
     if "--calibrate" in argv:
         assert (tmp_path / "calibration.json").exists()
         assert out["calibration"]
+    elif "--http" in argv:  # rank 0 alone binds; every report agrees
+        assert out["port"] > 0
+        assert [r["port"] is None for r in out["ranks"]] == [False, True]
+        assert all(r["report"] == out["report"] for r in out["ranks"])
     else:
         assert all(s["n_completed"] == s["n_submitted"] > 0
                    for s in out.values())

@@ -25,7 +25,7 @@ from repro.models.common import ModelConfig as JModelConfig
 from repro.models.common import SSMConfig as JSSMConfig
 from repro.models.common import init_params
 from repro_torch import configs
-from repro_torch.models import RunConfig, build, ssm
+from repro_torch.models import RunConfig, build, common, ssm
 from repro_torch.models.common import LayerSpec, ModelConfig, SSMConfig
 from repro_torch.serving import Engine
 
@@ -219,3 +219,21 @@ def test_engine_serves_an_attention_free_cache():
     eng.prefill_into(params, cache, 1, prompt)
     for big, small in zip(cache.layers, solo.layers):
         torch.testing.assert_close(big["state"][1], small["state"][0])
+
+
+def test_triangle_cumsum_equals_cumsum():
+    """The SSD scan's running sums as one product with a triangle of ones
+    (what ``common.cumsum`` runs on a CUDA tensor under deterministic
+    algorithms, where ``torch.cumsum`` raises) equal ``torch.cumsum``
+    within fp32 rounding, on the scan's (B, Nc, Q, H) layout along Q, with
+    the same grads."""
+    x = (-torch.rand(2, 3, 64, 4, generator=torch.Generator().manual_seed(0))
+         ).requires_grad_(True)
+    got = common.triangle_cumsum(x, 2)
+    want = torch.cumsum(x, 2)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+    g = torch.randn_like(want)
+    (gx,) = torch.autograd.grad(got, x, g)
+    (wx,) = torch.autograd.grad(want, x, g)
+    torch.testing.assert_close(gx, wx, rtol=1e-6, atol=1e-5)
+    assert torch.equal(common.cumsum(x, 2), want)  # the CPU keeps cumsum

@@ -34,6 +34,7 @@ reference, on the CPU at smoke size.
   quantization).
 * THE CASE STUDY — its trained classifier beats chance on the CPU.
 """
+import contextlib
 import json
 import os
 
@@ -488,6 +489,72 @@ def test_train_driver_crash_resume_is_bit_exact(tmp_path):
                     tree_leaves(straight["params"])):
         assert torch.equal(a, b)
     assert not torch.are_deterministic_algorithms_enabled()
+
+
+class _GivenInit:
+    """A ``build(cfg)`` facade whose ``init`` hands back given params (in
+    the port, the reference's converted: its own init draws other
+    numbers; in fp32, the same in both packages)."""
+
+    def __init__(self, model, params):
+        self._model, self._params = model, params
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def init(self, *args, **kwargs):
+        return self._params
+
+
+def _outcome(main, argv):
+    """("trained", (first, final loss)) or ("raised", exception type)."""
+    try:
+        out = main(argv)
+    except Exception as e:  # the reference's own failure is the outcome
+        return "raised", type(e)
+    return "trained", (out["first_loss"], out["final_loss"])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "qwen2-moe-a2.7b",
+                                  "jamba-1.5-large-398b", "whisper-base",
+                                  "distilbert-imdb"])
+def test_train_cli_per_family_matches_the_reference(arch, tmp_path,
+                                                       monkeypatch):
+    """``launch.train --arch`` on the reference's params: 3 steps of its
+    loader's next-token batches, first and final loss within
+    ``LOSS_RTOL``. The smoke jamba amplifies bf16 rounding (grad norms
+    250-310, a final loss 1.0% apart in bf16), so it trains in fp32 in
+    both packages (``test_torch_families._fp32_everywhere``). Two archs
+    take batches the reference's loader does not make, and both packages
+    raise the same exception type: whisper-base needs frame embeddings (a
+    ``KeyError``), distilbert-imdb's classifier one label a row (a
+    ``ValueError``)."""
+    from repro.launch import train as jtrain
+    from test_torch_families import _fp32_everywhere
+    argv = ["--arch", arch, "--smoke", "--steps", "3", "--batch", "2",
+            "--seq-len", "16", "--log-every", "1"]
+    jcfg, cfg = jconfigs.smoke(arch), configs.smoke(arch)
+    jparams = jbuild(jcfg).init(jax.random.PRNGKey(0))
+    params = from_reference(_np32(jparams), cfg, device="cpu")
+    fp32 = arch.startswith("jamba")
+    if fp32:
+        jparams = jax.tree.map(lambda x: x.astype(jnp.float32), jparams)
+        params = tree_map(lambda t: t.float(), params)
+        monkeypatch.setattr(jtrain, "build",
+                            lambda c: _GivenInit(jbuild(c), jparams))
+    monkeypatch.setattr(train_launch, "build",
+                        lambda c: _GivenInit(build(c), params))
+    with _fp32_everywhere() if fp32 else contextlib.nullcontext():
+        want = _outcome(jtrain.main,
+                        argv + ["--ckpt-dir", str(tmp_path / "ref")])
+        got = _outcome(train_launch.main, argv + [
+            "--device", "cpu", "--ckpt-dir", str(tmp_path / "port")])
+    assert got[0] == want[0], (got, want)
+    if want[0] == "raised":
+        assert got[1] is want[1]
+        assert arch in ("whisper-base", "distilbert-imdb")
+        return
+    np.testing.assert_allclose(got[1], want[1], rtol=LOSS_RTOL)
 
 
 # ---------------------------------------------------------------------------
